@@ -8,7 +8,7 @@ time budget in each mode (fresh threefry key per frame), average the
 frames, and compare per-pixel MSE against a long independent-sampling
 reference.
 
-Run on the real TPU: python examples/coherent_quality_ab.py
+Run on the card: python examples/coherent_quality_ab.py
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ def main():
 
     cfg = RenderConfig(width=640, height=360, spp=1, max_bounces=4,
                        intersector="pallas", bvh_leaf_size=4,
-                       pairs_per_step=8, stale_round_masks=True)
+                       stale_round_masks=True)
     scene = make_hall_scene(target_tris=50_000)
     scene = dataclasses.replace(
         scene, environment=make_sky_environment(resolution=128))

@@ -4,7 +4,7 @@ The capability the reference does not have: gradients flow from pixels
 back to scene parameters.  We render a target cornell box, perturb the
 material table, and recover it by gradient descent on image MSE.
 
-    python examples/inverse_rendering.py [--steps 60] [--tpu]
+    python examples/inverse_rendering.py [--steps 60] [--gpu]
 """
 
 import argparse
@@ -17,12 +17,12 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=60)
     ap.add_argument("--res", type=int, default=48)
-    ap.add_argument("--tpu", action="store_true",
-                    help="run on the default (TPU) backend instead of CPU")
+    ap.add_argument("--gpu", action="store_true",
+                    help="run on the default (GPU) backend instead of CPU")
     ap.add_argument("--out", default="inverse_result.png")
     args = ap.parse_args()
 
-    if not args.tpu:
+    if not args.gpu:
         import jax
         jax.config.update("jax_platforms", "cpu")
     import jax

@@ -1,12 +1,11 @@
 """Matched-wall-clock quality A/B: Russian roulette vs fixed 4 bounces.
 
-cfg.rr_start_bounce=2 cuts ~10% off the hall frame (fewer deep-bounce
-live lanes) at the cost of extra termination variance (the 1/q
-reweighting).  The honest basis for recommending the knob is
+cfg.rr_start_bounce=2 trims deep-bounce live lanes off the hall frame
+at the cost of extra termination variance (the 1/q reweighting).  The honest basis for recommending the knob is
 time-to-quality: render for a fixed budget in each mode, average the
 frames, and compare per-pixel MSE against a long RR-free reference.
 
-Run on the real TPU: python examples/r6_rr_quality.py [budget_s] [n_ref]
+Run on the card: python examples/r6_rr_quality.py [budget_s] [n_ref]
 """
 
 from __future__ import annotations
@@ -33,9 +32,9 @@ def main():
     base = RenderConfig(width=640, height=360, spp=1, max_bounces=4,
                         intersector="pallas", bvh_leaf_size=4,
                         coherent_bounce_sampling=True,
-                        pairs_per_step=8, stale_round_masks=True,
+                        stale_round_masks=True,
                         anyhit_strategy="single", cull_impl="pallas2",
-                        closest_k=16, cull_window=8192, cull_pps=16)
+                        closest_k=16)
     modes = {"rr-off": base,
              "rr-2": dataclasses.replace(base, rr_start_bounce=2)}
     scene = make_hall_scene(target_tris=50_000)

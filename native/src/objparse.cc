@@ -1,7 +1,7 @@
 // Fast Wavefront OBJ geometry parser (native ingest path).
 //
 // The reference uses C++ loaders (tiny_obj_loader / tinygltf) on its host
-// side; this is the TPU framework's native equivalent for the heavy part
+// side; this is this framework's native equivalent for the heavy part
 // of ingest — tokenizing multi-MB OBJ geometry — exposed through a tiny
 // C ABI consumed via ctypes (prismarine_core_tpu/native.py).  Python
 // keeps the small-file MTL/material logic.

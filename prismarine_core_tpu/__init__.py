@@ -1,7 +1,8 @@
-"""prismarine_core_tpu — a TPU-native differentiable path tracing framework.
+"""prismarine_core_tpu — a differentiable path tracing framework in JAX.
 
 A from-scratch re-design of the capabilities of EngineWorld/prismarine-core
-(a C++17/OpenGL-compute wavefront GPU path tracer) for TPU hardware:
+(a C++17/OpenGL-compute wavefront GPU path tracer) as JAX array programs,
+run on an NVIDIA H100:
 
 * compute path: JAX / XLA / Pallas — fixed shapes, masked lanes, `lax.scan`
   over bounces, sort/scan compaction instead of atomics and linked lists;
@@ -11,8 +12,8 @@ A from-scratch re-design of the capabilities of EngineWorld/prismarine-core
 * differentiable by design: gradients w.r.t. vertex positions, material
   parameters and light parameters (a capability the reference lacks);
 * scale-out: rays/pixels sharded over a `jax.sharding.Mesh` (data axis),
-  triangle ranges shardable over a model axis, psum-combined hits and
-  gradient all-reduce over ICI.
+  triangle ranges shardable over a model axis, min-reduced hits and
+  gradient all-reduce across devices.
 
 Layer map (mirrors SURVEY.md of the reference):
   utils/    — config, math helpers          (ref: Utils.hpp, mathlib.glsl)

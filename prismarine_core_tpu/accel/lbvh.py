@@ -1,4 +1,4 @@
-"""Morton-ordered LBVH: the TPU-native acceleration structure.
+"""Morton-ordered LBVH: the acceleration structure.
 
 Replaces the reference's entire GPU HLBVH pipeline —
 minmax reduction (``hlbvh/minmax.comp``), Morton emit
@@ -31,7 +31,7 @@ step-count metric.
 
 Traversal needs no per-ray stack either way: ``left`` + ``skip``
 (preorder escape) links make the walk stackless, the right shape for
-TPU vector lanes (the reference instead spills an 8-entry shared-memory
+vector lanes (the reference instead spills an 8-entry shared-memory
 stack to a global buffer, ``directTraverse.comp:40-70``).
 """
 

@@ -1,59 +1,49 @@
-"""Packet (tile x superblock) intersector — the dense, TPU-shaped fast path.
+"""Packet (tile x superblock) intersector — the production fast path.
 
-The skip-link walk (accel/traverse.py) is correct but latency-bound: every
-step is a data-dependent gather of ~4 bytes/lane from HBM, which TPUs
-execute at a tiny fraction of streaming bandwidth.  This module replaces
-pointer-chasing with dense compute, the classic packet-tracing idea
-re-shaped for the VPU:
+The skip-link walk (accel/traverse.py) steps every lane of a query
+through the tree in lockstep, one data-dependent gather per step, until
+the slowest ray finishes.  This module replaces pointer-chasing with
+dense work over coherent ray packets:
 
 1. rays sort by (direction octant, origin Morton, direction Morton) and
    group into TILES of 128 contiguous rays (the analog of the reference's
    optional ray sorting, ``Pipeline.hpp:101``, taken to its logical end);
-   the kernel ray matrix is built unsorted and permuted with ONE
-   64-byte-row gather (``_sorted_rays_matrix``, a measured 7% of the
-   round-3 frame);
+   the ray matrix is built unsorted and permuted with ONE 64-byte-row
+   gather (``_sorted_rays_matrix``);
 2. triangles are already Morton-sorted by the BVH build; consecutive runs
    of 128 slots form BLOCKS and runs of SB=8 blocks form SUPERBLOCKS with
    precomputed AABBs (two coarse levels of the same implicit tree);
-3. the dense cull runs at BLOCK granularity in a Pallas kernel
-   (ops/pallas_cull.py): per-(tile, block) entry distances in one
-   pass, from which superblock candidates, front-to-back bounds AND
-   the per-pair 8-bit block masks all derive (the round-3 XLA
-   superblock scan + separate windowed mask stage remain as the
-   ``cull_impl="xla"`` fallback);
-4. surviving (tile, superblock) pairs compact via ONE windowed packed
-   scatter bounded by the live-tile prefix (masks ride along as code
-   bits) and execute FRONT-TO-BACK through the fused Pallas kernel
-   (ops/pallas_intersect.py) under one of two strategies
-   (``_run_packet_pallas``): "two_round" for closest-hit (K nearest
-   superblocks per tile, then one per-ray re-cull of the rest against
-   the tightened caps) and "rounds" for any-hit (fully ordered
-   K-at-a-time rounds with exact cap-based exit); ``pairs_per_step``
-   consecutive same-tile pairs share each kernel grid step;
-5. per-ray closest hits fold across pairs in the kernel's VMEM
-   accumulator (deferred argmin: one cross-lane reduction per step),
-   then unsort.
-
-Every memory access is a contiguous 128-row slice; all hot math is dense
-broadcasting that XLA/Mosaic fuse into the block-min reduction.
+3. a dense slab cull of every tile's rays against block or superblock
+   boxes (ops/cull.py) yields candidate superblocks, front-to-back entry
+   bounds and per-pair 8-bit block masks;
+4. surviving (tile, superblock) pairs compact tile-major via ONE
+   windowed packed scatter bounded by the live-tile prefix (masks ride
+   along as code bits) and execute FRONT-TO-BACK under one of two
+   strategies (``_run_packet_pallas``): "two_round" for closest-hit (K
+   nearest superblocks per tile, then one per-ray re-cull of the rest
+   against the tightened caps) and "rounds" for any-hit (fully ordered
+   K-at-a-time rounds with exact cap-based exit);
+5. the Pallas kernel (ops/pallas_intersect.py) runs each tile's pairs
+   with the tile's rays and running closest hits in registers, then the
+   result unsorts.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from functools import partial
 
 import jax
 import jax.numpy as jnp
 
 from prismarine_core_tpu.accel.lbvh import BVH, EMPTY_BOX
 from prismarine_core_tpu.models.geometry import TriangleSoup
+from prismarine_core_tpu.ops.cull import (
+    box_entry, derive_pair_tables, pair_block_masks)
 from prismarine_core_tpu.ops.intersect import Hit, moller_trumbore
-from prismarine_core_tpu.utils.config import INF_DIST, PZERO
-
-TILE = 128      # rays per tile
-BLOCK = 128     # triangle slots per block
-SB = 8      # blocks per superblock (dense-cull granularity)
+from prismarine_core_tpu.ops.pallas_intersect import (
+    BLOCK, RAY_COLS, RC_DX, RC_IVX, RC_OX, RC_OZ, RC_TCAP, SB, TILE,
+    pallas_execute_pairs)
+from prismarine_core_tpu.utils.config import INF_DIST
 
 
 @jax.tree_util.register_dataclass
@@ -64,8 +54,7 @@ class PacketSet:
 
     ``planes`` holds SoA component planes of the sorted triangles
     (positions + precomputed edges) in superblock-contiguous layout —
-    the exact VMEM stream the fused Pallas kernel consumes
-    (ops/pallas_intersect.py).  The block count pads to a multiple of
+    the rows the pair kernel reads (ops/pallas_intersect.py).  The block count pads to a multiple of
     SB; padding blocks carry far-point AABBs (never pass a slab test)
     and invalid planes."""
 
@@ -179,159 +168,6 @@ def _interval_overlap(o_lo, o_hi, inv_lo, inv_hi, blk_lo, blk_hi, t_hi):
     return (tf >= jnp.maximum(tn, 0.0)) & (tn <= t_hi)
 
 
-def _per_ray_tile_overlap(ot, inv, tct, box_lo, box_hi,
-                          chunk: int = 32, return_tn: bool = False):
-    """Exact per-tile candidate mask at ``box`` granularity: a tile lists
-    a box iff some ray in it actually passes the slab test.
-
-    Replaces a conservative interval-frustum test: incoherent (bounce)
-    tiles have wide direction cones, and the frustum bound degenerates
-    toward 'every box'; testing the 128 rays individually and
-    OR-reducing is dense VPU work that XLA fuses into the reduction.
-    Dead lanes (t_cap == 0) contribute nothing.
-
-    ``return_tn``: also return f32[nt, nbx] — the min entry distance
-    over the tile's hitting rays (INF_DIST where none) — used to pick
-    each tile's nearest superblock for the two-pass ordered query.
-    """
-    nt = ot.shape[0]
-    nbx = box_lo.shape[0]
-    pad = (-nt) % chunk
-    if pad:
-        zot = jnp.zeros((pad,) + ot.shape[1:], ot.dtype)
-        ot = jnp.concatenate([ot, zot])
-        inv = jnp.concatenate([inv, jnp.ones_like(zot)])
-        tct = jnp.concatenate(
-            [tct, jnp.zeros((pad,) + tct.shape[1:], tct.dtype)])
-
-    def step(_, args):
-        o_c, inv_c, tc_c = args                     # [C, TILE, ...]
-        t0 = (box_lo[None, None] - o_c[:, :, None]) * inv_c[:, :, None]
-        t1 = (box_hi[None, None] - o_c[:, :, None]) * inv_c[:, :, None]
-        tn = jnp.max(jnp.minimum(t0, t1), axis=-1)  # [C, TILE, nbx]
-        tf = jnp.min(jnp.maximum(t0, t1), axis=-1)
-        # tc > 0 term: lanes with a zero cap are DEAD and must produce
-        # no pairs even when their origin sits inside a box (tn < 0)
-        hit = ((tf >= jnp.maximum(tn, 0.0))
-               & (tn <= tc_c[:, :, None]) & (tc_c[:, :, None] > 0.0))
-        any_hit = jnp.any(hit, axis=1)               # [C, nbx]
-        if not return_tn:
-            return None, (any_hit,)
-        tn_min = jnp.min(
-            jnp.where(hit, jnp.maximum(tn, 0.0), INF_DIST), axis=1)
-        return None, (any_hit, tn_min)
-
-    n_chunks = ot.shape[0] // chunk
-    _, outs = jax.lax.scan(
-        step, None,
-        (ot.reshape(n_chunks, chunk, TILE, 3),
-         inv.reshape(n_chunks, chunk, TILE, 3),
-         tct.reshape(n_chunks, chunk, TILE)))
-    outs = tuple(o.reshape(-1, nbx)[:nt] for o in outs)
-    return outs if return_tn else outs[0]
-
-
-def _block_masks(ot, inv, tct, pair_tile, pair_sb, n_pairs,
-                 block_lo, block_hi, window: int = 4096):
-    """Per-pair 8-bit block mask: bit k set iff some ray of the pair's
-    tile slab-passes block ``sb*SB + k``.
-
-    The second cull level, run over the compacted pair list in windows
-    (cost adapts to the survivor count).  Writes are contiguous
-    ``dynamic_update_slice`` windows — no scatters (the r1 quad builder's
-    ~15M-element scatters were the single hottest stage of a query).
-    The kernel consumes the mask as a scalar-prefetch array and skips
-    masked-off sub-blocks with cheap SMEM-side predication.
-    """
-    nt = ot.shape[0]
-    nsb = block_lo.shape[0] // SB
-    sblk_lo = block_lo.reshape(nsb, SB, 3)
-    sblk_hi = block_hi.reshape(nsb, SB, 3)
-    lw = pair_tile.shape[0]
-    window = min(window, lw)
-    wpad = (-lw) % window
-    if wpad:
-        pair_tile = jnp.concatenate(
-            [pair_tile, jnp.full((wpad,), nt, jnp.int32)])
-        pair_sb = jnp.concatenate(
-            [pair_sb, jnp.full((wpad,), nsb, jnp.int32)])
-
-    # sentinel tile nt: zero rays with t_cap 0 -> no bits set
-    otp = jnp.concatenate([ot, jnp.zeros((1, TILE, 3), ot.dtype)])
-    invp = jnp.concatenate([inv, jnp.ones((1, TILE, 3), inv.dtype)])
-    tctp = jnp.concatenate([tct, jnp.zeros((1, TILE), tct.dtype)])
-    bits = (1 << jnp.arange(SB, dtype=jnp.int32))[None, :]
-
-    def cond(state):
-        return state[0] < n_pairs
-
-    def body(state):
-        start, masks = state
-        pt = jax.lax.dynamic_slice(pair_tile, (start,), (window,))
-        psb = jax.lax.dynamic_slice(pair_sb, (start,), (window,))
-        live = (start + jnp.arange(window, dtype=jnp.int32)) < n_pairs
-        pt = jnp.where(live, pt, nt)
-        psb = jnp.minimum(psb, nsb - 1)
-        o_w = otp[pt]                                 # [W, TILE, 3]
-        i_w = invp[pt]
-        tc_w = tctp[pt]
-        lo_w = sblk_lo[psb][:, None]                  # [W, 1, SB, 3]
-        hi_w = sblk_hi[psb][:, None]
-        t0 = (lo_w - o_w[:, :, None]) * i_w[:, :, None]
-        t1 = (hi_w - o_w[:, :, None]) * i_w[:, :, None]
-        tn = jnp.max(jnp.minimum(t0, t1), axis=-1)    # [W, TILE, SB]
-        tf = jnp.min(jnp.maximum(t0, t1), axis=-1)
-        hit = ((tf >= jnp.maximum(tn, 0.0))
-               & (tn <= tc_w[:, :, None]) & (tc_w[:, :, None] > 0.0))
-        bm = jnp.any(hit, axis=1) & live[:, None]     # [W, SB]
-        mw = jnp.sum(jnp.where(bm, bits, 0), axis=1)  # [W] i32
-        masks = jax.lax.dynamic_update_slice(masks, mw, (start,))
-        return start + window, masks
-
-    masks0 = jnp.zeros((pair_tile.shape[0],), jnp.int32)
-    _, masks = jax.lax.while_loop(cond, body, (jnp.int32(0), masks0))
-    return masks[:lw]
-
-
-def _compact_flat(flat, tile_of, sb_of, nt, nsb_sentinel):
-    """Compact a flat candidate mask into a tile-major pair list.
-
-    One cumsum + two scatters (the GPU analog is a ballot+popcount queue
-    append, ``ballotlib.glsl:106-132``).  Padded entries ->
-    (nt, sentinel)."""
-    lw = flat.shape[0]
-    pos = jnp.cumsum(flat.astype(jnp.int32)) - 1
-    n_pairs = pos[-1] + 1
-    target = jnp.where(flat, pos, lw)
-    pair_tile = jnp.full((lw + 1,), nt, jnp.int32).at[target].set(
-        tile_of, mode="drop", unique_indices=True)[:lw]
-    pair_sb = jnp.full((lw + 1,), nsb_sentinel, jnp.int32).at[target].set(
-        sb_of, mode="drop", unique_indices=True)[:lw]
-    return pair_tile, pair_sb, n_pairs
-
-
-def _compact_pairs(sb_mask, nsb_sentinel):
-    """[nt, nsb] mask -> tile-major (pair_tile, pair_sb, n_pairs) with
-    static length nt*nsb; padded entries -> (nt, sentinel)."""
-    nt, nsb = sb_mask.shape
-    lw = nt * nsb
-    tile_of = jnp.arange(lw, dtype=jnp.int32) // nsb
-    sb_of = jnp.arange(lw, dtype=jnp.int32) % nsb
-    return _compact_flat(sb_mask.reshape(-1), tile_of, sb_of,
-                         nt, nsb_sentinel)
-
-
-def _compact_topk(cand, cand_ok, nt, nsb_sentinel):
-    """[nt, K] per-tile candidate ids (+validity) -> tile-major pair
-    list of static length nt*K — the round-1 compaction of the
-    front-to-back query (K nearest superblocks per tile)."""
-    k = cand.shape[1]
-    lw = nt * k
-    tile_of = jnp.arange(lw, dtype=jnp.int32) // k
-    return _compact_flat(cand_ok.reshape(-1), tile_of, cand.reshape(-1),
-                         nt, nsb_sentinel)
-
-
 def _live_tile_bound(tct):
     """i32[]: 1 + index of the LAST tile holding any live lane.
 
@@ -344,21 +180,16 @@ def _live_tile_bound(tct):
     return jnp.max(jnp.where(live_t, idx + 1, 0))
 
 
-def _compact_codes(flat, codes, bound, sentinel, window: int = 1 << 18,
-                   pos_of=None, out_len=None):
+def _compact_codes(flat, codes, bound, sentinel, window: int = 1 << 18):
     """Windowed cumsum+scatter compaction of ``codes[flat]`` bounded by
     the live prefix.
 
     ``flat`` bool[lw] selects entries; positions >= ``bound`` must all
     be False (dead-tile suffix).  The while_loop trip count is
     ceil(bound / window), so late-bounce queries (mostly-dead tiles)
-    pay a fraction of the full 1.8M-element scatter that round 3
-    measured at ~44 ms/query.  ``pos_of`` (i32[lw], optional) overrides
-    the packed output position of each selected entry (tile-aligned
-    layouts); default is the running count.  Returns
-    (packed i32[out_len or lw], n_set)."""
+    pay a fraction of the full scatter.  Returns (packed i32[lw],
+    n_set)."""
     lw = flat.shape[0]
-    out_len = lw if out_len is None else out_len
     window = min(window, lw)
     wpad = (-lw) % window
     fi = flat.astype(jnp.int32)
@@ -366,10 +197,7 @@ def _compact_codes(flat, codes, bound, sentinel, window: int = 1 << 18,
         fi = jnp.concatenate([fi, jnp.zeros((wpad,), jnp.int32)])
         codes = jnp.concatenate(
             [codes, jnp.full((wpad,), sentinel, jnp.int32)])
-        if pos_of is not None:
-            pos_of = jnp.concatenate(
-                [pos_of, jnp.zeros((wpad,), jnp.int32)])
-    out0 = jnp.full((out_len + 1,), sentinel, jnp.int32)
+    out0 = jnp.full((lw + 1,), sentinel, jnp.int32)
 
     def cond(state):
         start, _, _ = state
@@ -379,35 +207,25 @@ def _compact_codes(flat, codes, bound, sentinel, window: int = 1 << 18,
         start, total, out = state
         f = jax.lax.dynamic_slice(fi, (start,), (window,))
         c = jax.lax.dynamic_slice(codes, (start,), (window,))
-        if pos_of is None:
-            pos = total + jnp.cumsum(f) - f
-        else:
-            pos = jax.lax.dynamic_slice(pos_of, (start,), (window,))
+        pos = total + jnp.cumsum(f) - f
         # unselected entries all land on the last slot (sliced off
-        # below); the racy duplicate writes there are benign — same
-        # precedent as _compact_flat
-        target = jnp.where(f > 0, pos, out_len)
+        # below); the duplicate writes there are benign
+        target = jnp.where(f > 0, pos, lw)
         out = out.at[target].set(c, mode="drop", unique_indices=True)
         return start + window, total + jnp.sum(f), out
 
     _, n_set, out = jax.lax.while_loop(
         cond, body, (jnp.int32(0), jnp.int32(0), out0))
-    return out[:out_len], n_set
+    return out[:lw], n_set
 
 
-def _compact_rows_masked(mask2d, sb2d, pm2d, nt, nsb, bound,
-                         align: int = 1):
+def _compact_rows_masked(mask2d, sb2d, pm2d, nt, nsb, bound):
     """Generic masked row compaction: [nt, K] selection mask +
     superblock ids + 8-bit masks -> packed tile-major pair list via ONE
     windowed scatter (two when the id+mask packing exceeds 31 bits).
-
-    ``align`` > 1 pads each tile's pair run to a multiple of ``align``
-    with same-tile mask-0 entries, so the kernel can execute ``align``
-    pairs per grid step without a step ever straddling tiles
-    (pairs_per_step; worst-case padding nt*(align-1) entries at 8-bit
-    mask density ~0).  ``pm2d=None`` skips the mask bits entirely and
-    returns ``pm=None`` (the two-level-cull path derives masks AFTER
-    compaction from the pair-driven refine kernel)."""
+    ``pm2d=None`` skips the mask bits entirely and returns ``pm=None``
+    (the two-level cull derives masks after compaction,
+    ops/cull.py:pair_block_masks)."""
     rows, k = mask2d.shape
     lw = nt * k
     tb = max(nt, 1).bit_length()
@@ -425,35 +243,7 @@ def _compact_rows_masked(mask2d, sb2d, pm2d, nt, nsb, bound,
     else:
         codes = (tile_of << shift) | sb_of
     sentinel = (nt << shift) | (nsb << 8 if with_mask else nsb)
-
-    if align == 1:
-        packed, n_pairs = _compact_codes(flat, codes, bound, sentinel)
-        out_len = lw
-    else:
-        counts = mask2d.sum(axis=1).astype(jnp.int32)       # [nt]
-        padded = -(-counts // align) * align
-        poff = jnp.cumsum(padded) - padded                  # exclusive
-        wrank = jnp.cumsum(mask2d.astype(jnp.int32), axis=1) - 1
-        pos_of = (poff[:, None] + wrank).reshape(-1)
-        out_len = lw + nt * (align - 1)
-        packed, _ = _compact_codes(flat, codes, bound, sentinel,
-                                   pos_of=pos_of, out_len=out_len)
-        # intra-tile padding entries carry the RIGHT tile (mask 0, sb
-        # sentinel) so aligned steps stay single-tile
-        extra = align - 1
-        tiles = jnp.arange(nt, dtype=jnp.int32)
-        pad_code = ((tiles << shift)
-                    | (nsb << 8 if with_mask else nsb))
-        ppos = poff[:, None] + counts[:, None] \
-            + jnp.arange(extra, dtype=jnp.int32)[None, :]
-        pvalid = (counts[:, None]
-                  + jnp.arange(extra, dtype=jnp.int32)[None, :]
-                  ) < padded[:, None]
-        tgt = jnp.where(pvalid, ppos, out_len).reshape(-1)
-        packed = packed.at[tgt].set(
-            jnp.broadcast_to(pad_code[:, None], (nt, extra)
-                             ).reshape(-1), mode="drop")
-        n_pairs = jnp.sum(padded)
+    packed, n_pairs = _compact_codes(flat, codes, bound, sentinel)
 
     pt = packed >> shift
     psb = (packed >> 8 if with_mask else packed) & ((1 << sbb) - 1)
@@ -461,31 +251,26 @@ def _compact_rows_masked(mask2d, sb2d, pm2d, nt, nsb, bound,
         return pt, psb, packed & 0xFF, n_pairs
     if pm2d is None:
         return pt, psb, None, n_pairs
-    pm, _ = _compact_codes(
-        flat, pm2d.reshape(-1), bound, 0,
-        pos_of=None if align == 1 else pos_of, out_len=out_len)
+    pm, _ = _compact_codes(flat, pm2d.reshape(-1), bound, 0)
     return pt, psb, pm, n_pairs
 
 
-def _compact_pairs_masked(sb_mask, mask8, bound_rows, align: int = 1):
-    """[nt, nsb] candidate mask + per-pair 8-bit block masks -> packed
-    tile-major pair list.  Replaces _compact_pairs + _block_masks on
-    the pallas-cull path: masks ride along as code bits, so no
-    separate mask stage and no gathers."""
+def _compact_pairs_masked(sb_mask, mask8, bound_rows):
+    """[nt, nsb] candidate mask + per-pair 8-bit block masks (or None)
+    -> packed tile-major pair list; masks ride along as code bits, so
+    there is no separate mask stage and no gather."""
     nt, nsb = sb_mask.shape
     sb2d = jnp.broadcast_to(jnp.arange(nsb, dtype=jnp.int32),
                             (nt, nsb))
     bound = jnp.minimum(bound_rows * nsb, nt * nsb)
-    return _compact_rows_masked(sb_mask, sb2d, mask8, nt, nsb, bound,
-                                align=align)
+    return _compact_rows_masked(sb_mask, sb2d, mask8, nt, nsb, bound)
 
 
-def _compact_topk_masked(cand, cand_ok, pmask, nt, nsb,
-                         align: int = 1):
+def _compact_topk_masked(cand, cand_ok, pmask, nt, nsb):
     """[nt, K] per-tile candidates + validity + per-candidate 8-bit
-    masks -> packed tile-major pair list."""
+    masks (or None) -> packed tile-major pair list."""
     return _compact_rows_masked(cand_ok, cand, pmask, nt, nsb,
-                                nt * cand.shape[1], align=align)
+                                nt * cand.shape[1])
 
 
 def _tables_with_cap(tn_blk, cap_tile, nsb):
@@ -638,8 +423,7 @@ def _sort_pad_rays(root_lo, root_hi, o, d, t_cap, order=None,
     origin-coherent order transfers to them and the (expensive) u32
     lax.sort is paid once per bounce, not once per query.
 
-    ``mode`` trades sort cost against tile tightness (the full u32 sort
-    was a measured 57 ms/query at 921k rays, PERF.md r3):
+    ``mode`` trades sort cost against tile tightness:
 
     * ``"full"``   — 2-array (key, iota) sort on the full 31-bit key.
     * ``"packed"`` — ONE-array u32 sort: the top ``32 - ceil_log2(R)``
@@ -714,43 +498,33 @@ def _sorted_rays_matrix(root_lo, root_hi, o, d, t_cap, order=None,
     """Kernel ray matrix f32[(nt+1)*TILE, RAY_COLS] in coherence order
     with ONE row gather.
 
-    The r3 path gathered o/d/t_cap separately (three 12-byte-row
-    gathers) and then copied them into the component matrix; building
-    the unsorted matrix first and permuting whole 64-byte rows once is
-    the same data movement the hardware actually likes.  Trailing
-    rows: dead-ray padding to a TILE multiple + the all-zero sentinel
-    tile.  Returns (rays, (perm, inv_perm), n_orig).
+    The unsorted matrix is built first and whole 64-byte rows are
+    permuted once (instead of three 12-byte-row gathers of o/d/t_cap).
+    Trailing rows: dead-ray padding to a TILE multiple + the all-zero
+    sentinel tile.  Returns (rays, (perm, inv_perm), n_orig).
 
     ``order="identity"`` skips the sort AND the row gather entirely
     (cfg.primary_identity: camera rays in scanline order are already
     tile-coherent) and is returned as-is so shadow-query reuse stays
     gather-free too."""
-    from prismarine_core_tpu.ops.pallas_intersect import (
-        RAY_COLS, RC_CX, RC_ONE)
     r = o.shape[0]
     identity = isinstance(order, str) and order == "identity"
     if order is None:
         order = _coherence_perm(root_lo, root_hi, o, d, t_cap, mode)
 
     cols = jnp.zeros((r, RAY_COLS), jnp.float32)
-    cols = cols.at[:, 0:3].set(o)
-    cols = cols.at[:, 3:6].set(d)
-    cols = cols.at[:, 6].set(t_cap)
-    cols = cols.at[:, 8:11].set(_safe_inv(d))
-    # mxu kernel-form features: constant 1 + c = (o - center) x d
-    # (scene-centered to keep the bilinear terms' magnitudes local);
-    # the mt kernel and the cull never read these columns
-    center = 0.5 * (root_lo + root_hi)
-    cols = cols.at[:, RC_ONE].set(1.0)
-    cols = cols.at[:, RC_CX:RC_CX + 3].set(jnp.cross(o - center, d))
+    cols = cols.at[:, RC_OX:RC_OX + 3].set(o)
+    cols = cols.at[:, RC_DX:RC_DX + 3].set(d)
+    cols = cols.at[:, RC_TCAP].set(t_cap)
+    cols = cols.at[:, RC_IVX:RC_IVX + 3].set(_safe_inv(d))
     rays = cols if identity else cols[order[0]]   # the one row gather
 
     pad = (-r) % TILE
     if pad:
         dead = jnp.zeros((pad, RAY_COLS), jnp.float32)
-        dead = dead.at[:, 2].set(1e8)       # o = (0, 0, 1e8)
-        dead = dead.at[:, 3].set(1.0)       # d = (1, 0, 0)
-        dead = dead.at[:, 8:11].set(
+        dead = dead.at[:, RC_OZ].set(1e8)   # o = (0, 0, 1e8)
+        dead = dead.at[:, RC_DX].set(1.0)   # d = (1, 0, 0)
+        dead = dead.at[:, RC_IVX:RC_IVX + 3].set(
             _safe_inv(jnp.asarray([[1.0, 0.0, 0.0]])))
         rays = jnp.concatenate([rays, dead])
     rays = jnp.concatenate(
@@ -758,40 +532,18 @@ def _sorted_rays_matrix(root_lo, root_hi, o, d, t_cap, order=None,
     return rays, order, r
 
 
-def _run_kernel(pair_tile, pair_sb, pair_mask, n_real, rays, planes,
-                nt, nsb, window, prior=None, pairs_per_step: int = 1,
-                kernel_form: str = "mt"):
-    """Pad a pair list to a window multiple and run the Pallas kernel."""
-    from prismarine_core_tpu.ops.pallas_intersect import (
-        pallas_sb_intersect_windowed)
-    pps = pairs_per_step
-    window = min(window, -(-int(pair_tile.shape[0]) // pps) * pps)
-    wpad = (-int(pair_tile.shape[0])) % window
-    if wpad:
-        pair_tile = jnp.concatenate(
-            [pair_tile, jnp.full((wpad,), nt, jnp.int32)])
-        pair_sb = jnp.concatenate(
-            [pair_sb, jnp.full((wpad,), nsb, jnp.int32)])
-        pair_mask = jnp.concatenate(
-            [pair_mask, jnp.zeros((wpad,), jnp.int32)])
-    return pallas_sb_intersect_windowed(
-        pair_tile, pair_sb, pair_mask, n_real, rays, planes,
-        window=window, prior=prior, pairs_per_step=pps,
-        kernel_form=kernel_form)
-
-
 #: per-round budget of the front-to-back query: each round executes
 #: each tile's next K_FIRST nearest remaining superblocks (by tile-min
 #: box entry distance).  Morton-adjacent blocks make "nearest
-#: superblock contains the hit" unreliable for K=1 (measured ~1-2%
-#: wrong-hit rate when round 2 was skipped) but K=8 captures the true
-#: hit for the large majority of rays in the first round, so later
-#: rounds retire almost everything against the tightened per-ray caps.
+#: superblock contains the hit" unreliable for K=1 (~1-2% wrong hits
+#: when round 2 was skipped) but K=8 captures the true hit for the
+#: large majority of rays in the first round, so later rounds retire
+#: almost everything against the tightened per-ray caps.
 K_FIRST = 8
 
 
 def _run_packet_pallas(root_lo, root_hi, ps: PacketSet, o, d, t_cap,
-                       any_hit: bool = False, window: int = 1024,
+                       any_hit: bool = False,
                        order=None, two_round: bool = True,
                        k_round: int | None = None,
                        strategy: str | None = None,
@@ -799,181 +551,108 @@ def _run_packet_pallas(root_lo, root_hi, ps: PacketSet, o, d, t_cap,
                        sort_mode: str = "full",
                        recull: str = "sb",
                        stale_round_masks: bool = False,
-                       pairs_per_step: int = 1,
                        near_frac: float = 0.0,
-                       cull_chunk: int = 1024,
-                       cull_window: int = 4096,
-                       cull_pps: int = 0,
-                       kernel_form: str = "mt",
                        with_counters: bool = False):
-    """Pallas fast path: sort+tile rays, dense block-granular cull,
-    front-to-back pair execution, unsort.  Returns (t, slot, order).
+    """Packet fast path: sort+tile rays, cull, front-to-back pair
+    execution through the Pallas kernel, unsort.  Returns (t, slot,
+    order).
 
-    Three execution strategies (measured on the hall 137k-tri bench,
-    PERF.md round 3):
+    Three execution strategies:
 
     * ``"single"``  — one dense compaction, every pair executes.
     * ``"two_round"`` — K nearest superblocks per tile (top_k on the
       cull's entry distances) first, then ONE re-cull of the rest
-      against the tightened caps.  Fastest for closest-hit queries.
+      against the tightened caps (default for closest-hit queries).
     * ``"rounds"``  — full per-tile front-to-back ordering (one
       row-wise ``lax.sort``), then K-at-a-time rounds in a
       ``while_loop``; each round re-reads per-ray caps, and the loop
       exits as soon as no tile's nearest remaining candidate can beat
-      its cap (exact: candidates are tn-ascending).  Fastest for
-      ANY-HIT queries: finished lanes zero their caps, so whole
-      rounds evaporate.
+      its cap (exact: candidates are tn-ascending).  Default for
+      ANY-HIT queries: finished lanes zero their caps, so whole rounds
+      evaporate.
 
-    Default: ``"rounds"`` for any-hit, ``"two_round"`` for closest.
-
-    ``cull_impl``: "pallas" runs the block-granular cull kernel
-    (ops/pallas_cull.py) which yields superblock candidates, entry
-    distances AND the per-pair 8-bit block masks in one pass; "xla" is
-    the round-3 two-stage fallback (superblock scan + windowed
-    _block_masks).  ``recull``: how two_round prunes round 2 on the
-    pallas path — "sb" per-ray-reculls at superblock granularity and
-    keeps the round-1 block masks (measured fastest), "kernel" re-runs
-    the cull kernel with per-ray tightened caps, "tn" filters the
-    saved block entry distances by per-tile caps (cheapest stage-wise
-    but per-tile caps re-admit whole tiles once one lane misses to the
-    sky — measured 6x slower end-to-end, kept for reference).
+    ``cull_impl``: "pallas" culls densely at BLOCK granularity
+    (ops/cull.py:box_entry) and derives superblock candidates, entry
+    distances AND the per-pair 8-bit block masks from that one pass;
+    "pallas2" and "xla" (the same two-level cull) cull densely at
+    SUPERBLOCK granularity and refine the compacted pairs to block
+    masks (ops/cull.py:pair_block_masks).  ``recull``: how two_round
+    prunes round 2 under one-level culling — "sb" re-culls per ray at
+    superblock granularity and keeps the round-1 block masks, "kernel"
+    re-runs the block cull with per-ray tightened caps, "tn" filters
+    the saved block entry distances by per-tile caps.
     ``stale_round_masks``: the "rounds" strategy normally re-derives
-    per-ray block masks each round against the tightened caps (lanes
-    retire individually — stale masks measured +34% on incoherent
-    any-hit); True keeps round-0 masks (wins for coherent queries that
-    finish in a round or two).  ``sort_mode``: see _sort_pad_rays.
+    per-ray block masks each round against the tightened caps; True
+    keeps round-0 masks (cheaper for coherent queries that finish in a
+    round or two).  ``sort_mode``: see _sort_pad_rays.
     ``with_counters``: additionally return a dict of work counters —
     executed pairs and live [128x128] Möller–Trumbore sub-blocks
-    (popcount of the executed masks) — the per-round tests/ray
-    instrumentation (VERDICT r4 item 2).
+    (popcount of the executed masks).  All variants return identical
+    hits: they schedule the same exact tests.
     """
     rays, order, r = _sorted_rays_matrix(root_lo, root_hi, o, d, t_cap,
                                          order, mode=sort_mode)
     nt = rays.shape[0] // TILE - 1
     nsb = ps.n_superblocks
-
-    # "mxu" kernel form: the MT kernel consumes determinant-form
-    # coefficient planes (one matmul per sub-block on the MXU).  The
-    # transform is pure elementwise/cross-product work fused into the
-    # query's program (~4x the plane bytes written once per query).
-    exec_planes = ps.planes
-    if kernel_form == "mxu":
-        from prismarine_core_tpu.ops.pallas_intersect import (
-            mxu_planes_from_planes)
-        exec_planes = mxu_planes_from_planes(
-            ps.planes, 0.5 * (root_lo + root_hi))
-
-    from prismarine_core_tpu.ops.pallas_intersect import (RAY_COLS,
-                                                          RC_TCAP)
-
-    body = rays[:nt * TILE]
-    ot = body[:, 0:3].reshape(nt, TILE, 3)
-    dt = body[:, 3:6].reshape(nt, TILE, 3)
-    tct = body[:, RC_TCAP].reshape(nt, TILE)
-    inv = body[:, 8:11].reshape(nt, TILE, 3)
+    tct = rays[:nt * TILE, RC_TCAP].reshape(nt, TILE)
 
     k_first = K_FIRST if k_round is None else k_round
     if strategy is None:
         strategy = "rounds" if any_hit else "two_round"
     if not two_round or nsb <= k_first:
         strategy = "single"
-
-    use_p2 = cull_impl == "pallas2"
-    use_pallas_cull = cull_impl in ("pallas", "pallas2")
-    # pairs_per_step needs tile-ALIGNED pair lists, which only the
-    # masked (pallas-cull) compaction produces
-    pps = pairs_per_step if use_pallas_cull else 1
-    # two-level path: compact with align = the pair-cull kernel's
-    # pairs-per-step (every aligned group shares a tile); the MT
-    # kernel's pps must divide it.  ``cull_pps=16`` fills all 128
-    # refine-kernel lanes (16 pairs x 8 blocks) at the price of more
-    # tile-run padding in the MT windows.
-    align = (cull_pps or (16 if pps == 16 else 8)) if use_p2 else pps
-    assert align % max(pps, 1) == 0, \
-        "pairs_per_step must divide the pair-cull alignment " \
-        "(cull_pps or 8/16) with cull_impl='pallas2'"
+    assert cull_impl in ("pallas", "pallas2", "xla"), cull_impl
+    two_level = cull_impl != "pallas"
     n_live = _live_tile_bound(tct)
 
-    # ---- dense cull: candidate superblocks + entry distances (+ masks
-    # at block granularity on the one-level "pallas" path; the
-    # two-level "pallas2" path culls dense at SUPERBLOCK granularity —
-    # 1/8 the slab work — and refines masks per compacted pair)
-    tn_blk = box_rows = sb_rows = sbbox = None
-    if use_p2:
-        from prismarine_core_tpu.ops.pallas_cull import (
-            box_rows_from_blocks, pallas_block_cull, pallas_pair_cull,
-            sb_box_table)
-        sb_rows = box_rows_from_blocks(ps.sb_lo, ps.sb_hi)
-        sbbox = sb_box_table(ps.block_lo, ps.block_hi)
-        tn_sb = pallas_block_cull(rays, sb_rows, n_live,
-                                  chunk=cull_chunk)[:, :nsb]
-        sb_mask = tn_sb < INF_DIST
-        sb_tn = tn_sb
+    # ---- dense cull: candidate superblocks + entry distances (+ block
+    # masks on the one-level path)
+    tn_blk = None
+    if two_level:
+        sb_tn = box_entry(rays, ps.sb_lo, ps.sb_hi, n_live)
+        sb_mask = sb_tn < INF_DIST
         mask8 = None
-    elif use_pallas_cull:
-        from prismarine_core_tpu.ops.pallas_cull import (
-            box_rows_from_blocks, derive_pair_tables, pallas_block_cull)
-        box_rows = box_rows_from_blocks(ps.block_lo, ps.block_hi)
-        tn_blk = pallas_block_cull(rays, box_rows, n_live,
-                                   chunk=cull_chunk)
-        sb_mask, sb_tn, mask8 = derive_pair_tables(tn_blk, nsb, SB)
     else:
-        mask8 = None
-        if strategy == "single":
-            sb_mask = _per_ray_tile_overlap(ot, inv, tct,
-                                            ps.sb_lo, ps.sb_hi)
-            sb_tn = None
-        else:
-            sb_mask, sb_tn = _per_ray_tile_overlap(
-                ot, inv, tct, ps.sb_lo, ps.sb_hi, return_tn=True)
+        tn_blk = box_entry(rays, ps.block_lo, ps.block_hi, n_live)
+        sb_mask, sb_tn, mask8 = derive_pair_tables(tn_blk, nsb, SB)
 
     def rays_with_caps(tct_eff):
-        from prismarine_core_tpu.ops.pallas_intersect import RC_TCAP
         return rays.at[:nt * TILE, RC_TCAP].set(tct_eff.reshape(-1))
 
-    def attach_masks(pt, psb, np_, rays_eff):
-        """Two-level path: per-pair 8-bit block masks from the
-        pair-driven refine kernel (replaces both the [nt, nb] dense
-        block cull and the _block_masks XLA stage)."""
-        return pallas_pair_cull(pt, psb, np_,
-                                rays if rays_eff is None else rays_eff,
-                                sbbox, cpps=align, window=cull_window)
+    def refine(pt, psb, np_, rays_eff):
+        return pair_block_masks(rays if rays_eff is None else rays_eff,
+                                pt, psb, np_, ps.block_lo, ps.block_hi)
 
-    def compact_dense(mask, tct_eff, m8, bound, rays_eff=None):
+    def compact_dense(mask, m8, bound, rays_eff=None):
         """[nt, nsb] candidate mask -> (pt, psb, pm, n_pairs)."""
-        if use_p2:
-            pt, psb, _, np_ = _compact_rows_masked(
-                mask, jnp.broadcast_to(
-                    jnp.arange(nsb, dtype=jnp.int32), mask.shape),
-                None, nt, nsb,
-                jnp.minimum(bound * nsb, nt * nsb), align=align)
-            pm = attach_masks(pt, psb, np_, rays_eff)
-            return pt, psb, pm, np_
-        if m8 is not None:
-            return _compact_pairs_masked(mask, m8, bound, align=pps)
-        pt, psb, np_ = _compact_pairs(mask, nsb)
-        pm = _block_masks(ot, inv, tct_eff, pt, psb, np_,
-                          ps.block_lo, ps.block_hi)
+        pt, psb, pm, np_ = _compact_pairs_masked(mask, m8, bound)
+        if pm is None:
+            pm = refine(pt, psb, np_, rays_eff)
         return pt, psb, pm, np_
 
-    def compact_topk(cand, ok, tct_eff, m8, rays_eff=None):
+    def compact_topk(cand, ok, m8, rays_eff=None):
         """[nt, K] candidates -> (pt, psb, pm, n_pairs)."""
-        if use_p2:
-            pt, psb, _, np_ = _compact_rows_masked(
-                ok, cand, None, nt, nsb, nt * cand.shape[1],
-                align=align)
-            pm = attach_masks(pt, psb, np_, rays_eff)
-            return pt, psb, pm, np_
+        pmk = None
         if m8 is not None:
-            pmk = jnp.take_along_axis(
-                m8, jnp.minimum(cand, nsb - 1), axis=1)
-            pmk = jnp.where(ok, pmk, 0)
-            return _compact_topk_masked(cand, ok, pmk, nt, nsb,
-                                        align=pps)
-        pt, psb, np_ = _compact_topk(cand, ok, nt, nsb)
-        pm = _block_masks(ot, inv, tct_eff, pt, psb, np_,
-                          ps.block_lo, ps.block_hi)
+            pmk = jnp.where(ok, jnp.take_along_axis(
+                m8, jnp.minimum(cand, nsb - 1), axis=1), 0)
+        pt, psb, pm, np_ = _compact_topk_masked(cand, ok, pmk, nt, nsb)
+        if pm is None:
+            pm = refine(pt, psb, np_, rays_eff)
         return pt, psb, pm, np_
+
+    def execute(pt, psb, pm, np_, prior=None):
+        return pallas_execute_pairs(pt, psb, pm, np_, rays, ps.planes,
+                                    prior)
+
+    def caps_from(out):
+        """Per-ray caps after a partial execution: finished any-hit
+        lanes drop out, closest-hit lanes tighten to their best t."""
+        best = out[0].reshape(nt + 1, TILE)[:nt]
+        if any_hit:
+            slot = out[1].reshape(nt + 1, TILE)[:nt]
+            return jnp.where(slot >= 0, 0.0, tct)
+        return jnp.minimum(tct, best)
 
     def _bits(pm):
         return jnp.sum(jnp.bitwise_count(pm.astype(jnp.uint32)
@@ -981,92 +660,64 @@ def _run_packet_pallas(root_lo, root_hi, ps: PacketSet, o, d, t_cap,
 
     counters = None
     if strategy == "single":
-        pt, psb, pm, np_ = compact_dense(sb_mask, tct, mask8, n_live)
-        out = _run_kernel(pt, psb, pm, np_, rays,
-                          exec_planes, nt, nsb, window,
-                          pairs_per_step=pps, kernel_form=kernel_form)
+        pt, psb, pm, np_ = compact_dense(sb_mask, mask8, n_live)
+        out = execute(pt, psb, pm, np_)
         if with_counters:
             counters = dict(n_pairs=np_, mt_subblocks=_bits(pm))
     elif strategy == "two_round":
         # ---- round 1: nearest candidate superblocks per tile ----
         tn_cand = jnp.where(sb_mask, sb_tn, INF_DIST)
-        if near_frac > 0.0 and (mask8 is not None or use_p2):
+        if near_frac > 0.0:
             # THRESHOLD selection: superblocks whose entry distance is
             # within near_frac of the tile's candidate range run first
-            # (two row reduces instead of a ~41 ms top_k; measured a
-            # wash on the hall bench — kept as a knob)
+            # (two row reduces instead of a top_k)
             tmin = jnp.min(tn_cand, axis=1, keepdims=True)
             tmax = jnp.max(jnp.where(sb_mask, sb_tn, -INF_DIST),
                            axis=1, keepdims=True)
             thr = tmin + jnp.float32(near_frac) * jnp.maximum(
                 tmax - tmin, 0.0)
             executed = sb_mask & (sb_tn <= thr)
-            pt1, psb1, pm1, np1 = compact_dense(executed, tct, mask8,
-                                                n_live)
+            pt1, psb1, pm1, np1 = compact_dense(executed, mask8, n_live)
         else:
             neg_tn, cand = jax.lax.top_k(-tn_cand, k_first)  # [nt, K]
             cand_ok = -neg_tn < INF_DIST
-            pt1, psb1, pm1, np1 = compact_topk(cand, cand_ok, tct,
-                                               mask8)
+            pt1, psb1, pm1, np1 = compact_topk(cand, cand_ok, mask8)
             executed = jnp.zeros((nt, nsb + 1), bool).at[
                 jnp.arange(nt, dtype=jnp.int32)[:, None],
                 jnp.where(cand_ok, cand, nsb)].set(True)[:, :nsb]
-        out = _run_kernel(pt1, psb1, pm1, np1, rays, exec_planes,
-                          nt, nsb, window, pairs_per_step=pps,
-                          kernel_form=kernel_form)
+        out = execute(pt1, psb1, pm1, np1)
 
         # ---- round 2: re-cull the rest against tightened caps ----
-        o1 = out.reshape(nt + 1, TILE, 8)
-        best1 = o1[:nt, :, 0]                             # [nt, TILE]
-        if any_hit:
-            slot1 = jax.lax.bitcast_convert_type(o1[:nt, :, 1],
-                                                 jnp.int32)
-            tct2 = jnp.where(slot1 >= 0, 0.0, tct)        # done lanes out
-        else:
-            tct2 = jnp.minimum(tct, best1)
+        tct2 = caps_from(out)
         n_live2 = _live_tile_bound(tct2)
         rays2 = None
-        if use_p2:
-            # re-run the SUPERBLOCK-level dense cull with the
-            # per-ray tightened caps (exact per-ray pruning at sb
-            # granularity, ~1/8 the round-4 block-cull work); the
-            # pair-driven refine then derives masks under the same
-            # tightened caps
+        if two_level:
+            # per-ray exact pruning at superblock granularity; the pair
+            # refine derives masks under the same tightened caps
             rays2 = rays_with_caps(tct2)
-            tn2 = pallas_block_cull(rays2, sb_rows, n_live2,
-                                    chunk=cull_chunk)[:, :nsb]
-            sb_mask2 = (tn2 < INF_DIST) & sb_mask & ~executed
+            sb_mask2 = box_entry(rays2, ps.sb_lo, ps.sb_hi,
+                                 n_live2) < INF_DIST
             mask8_2 = None
-        elif use_pallas_cull:
-            if recull == "kernel":
-                rays2 = rays_with_caps(tct2)
-                from prismarine_core_tpu.ops.pallas_cull import (
-                    derive_pair_tables, pallas_block_cull)
-                tn2 = pallas_block_cull(rays2, box_rows, n_live2,
-                                        chunk=cull_chunk)
-                sb_mask2, _, mask8_2 = derive_pair_tables(tn2, nsb, SB)
-            elif recull == "sb":
-                # per-ray XLA recull at SUPERBLOCK granularity + the
-                # round-1 block masks (stale bits are conservative):
-                # per-ray caps prune what a per-tile cap cannot — one
-                # sky lane's INF cap otherwise re-admits the whole tile
-                sb_mask2 = _per_ray_tile_overlap(ot, inv, tct2,
-                                                 ps.sb_lo, ps.sb_hi)
-                mask8_2 = mask8
-            else:   # "tn": per-tile caps on saved block distances
-                sb_mask2, mask8_2 = _tables_with_cap(
-                    tn_blk, jnp.max(tct2, axis=1), nsb)
-            sb_mask2 = sb_mask2 & sb_mask & ~executed
-        else:
-            mask8_2 = None
-            sb_mask2 = (_per_ray_tile_overlap(ot, inv, tct2,
-                                              ps.sb_lo, ps.sb_hi)
-                        & sb_mask & ~executed)
-        pt2, psb2, pm2, np2 = compact_dense(sb_mask2, tct2, mask8_2,
-                                            n_live2, rays_eff=rays2)
-        out = _run_kernel(pt2, psb2, pm2, np2, rays, exec_planes,
-                          nt, nsb, window, prior=out,
-                          pairs_per_step=pps, kernel_form=kernel_form)
+        elif recull == "kernel":
+            rays2 = rays_with_caps(tct2)
+            sb_mask2, _, mask8_2 = derive_pair_tables(
+                box_entry(rays2, ps.block_lo, ps.block_hi, n_live2),
+                nsb, SB)
+        elif recull == "sb":
+            # per-ray superblock recull + the round-1 block masks
+            # (stale bits are conservative): per-ray caps prune what a
+            # per-tile cap cannot — one sky lane's INF cap otherwise
+            # re-admits the whole tile
+            sb_mask2 = box_entry(rays_with_caps(tct2), ps.sb_lo,
+                                 ps.sb_hi, n_live2) < INF_DIST
+            mask8_2 = mask8
+        else:   # "tn": per-tile caps on saved block distances
+            sb_mask2, mask8_2 = _tables_with_cap(
+                tn_blk, jnp.max(tct2, axis=1), nsb)
+        sb_mask2 = sb_mask2 & sb_mask & ~executed
+        pt2, psb2, pm2, np2 = compact_dense(sb_mask2, mask8_2, n_live2,
+                                            rays_eff=rays2)
+        out = execute(pt2, psb2, pm2, np2, prior=out)
         if with_counters:
             counters = dict(n_pairs=np1 + np2,
                             mt_subblocks=_bits(pm1) + _bits(pm2))
@@ -1087,78 +738,52 @@ def _run_packet_pallas(root_lo, root_hi, ps: PacketSet, o, d, t_cap,
                 [sb_sorted, jnp.full((nt, pad_cols), nsb, jnp.int32)],
                 axis=1)
 
-        def caps_from(out):
-            o_ = out.reshape(nt + 1, TILE, 8)
-            best = o_[:nt, :, 0]                          # [nt, TILE]
-            if any_hit:
-                slot = jax.lax.bitcast_convert_type(o_[:nt, :, 1],
-                                                    jnp.int32)
-                tct_eff = jnp.where(slot >= 0, 0.0, tct)
-            else:
-                tct_eff = jnp.minimum(tct, best)
-            return tct_eff, jnp.max(tct_eff, axis=1)      # per-tile cap
-
-        def do_round(rr, out, tct_eff, tile_cap):
+        def do_round(rr, out, tct_eff):
+            tile_cap = jnp.max(tct_eff, axis=1)
             cand = jax.lax.dynamic_slice(sb_sorted, (0, rr * k),
                                          (nt, k))
             ctn = jax.lax.dynamic_slice(tn_sorted, (0, rr * k),
                                         (nt, k))
             ok = (ctn <= tile_cap[:, None]) & (ctn < INF_DIST)
             # refresh the block masks against the PER-RAY tightened
-            # caps: lanes retire individually, and round-0 masks
-            # measured +34% kernel work on incoherent any-hit.  On the
-            # two-level path the refresh is the pair-driven refine
-            # kernel itself, fed cap-tightened rays.
-            rays_eff = (None if stale_round_masks
-                        else rays_with_caps(tct_eff)) if use_p2 else None
-            pt, psb, pm, npairs = compact_topk(cand, ok, tct_eff,
-                                               mask8, rays_eff=rays_eff)
-            if use_pallas_cull and not use_p2 and not stale_round_masks:
-                pm = _block_masks(ot, inv, tct_eff, pt, psb, npairs,
-                                  ps.block_lo, ps.block_hi)
-            out = _run_kernel(pt, psb, pm, npairs, rays, exec_planes,
-                              nt, nsb, window, prior=out,
-                              pairs_per_step=pps,
-                              kernel_form=kernel_form)
+            # caps (lanes retire individually) unless stale masks are
+            # asked for
+            rays_eff = None if stale_round_masks else rays_with_caps(
+                tct_eff)
+            pt, psb, pm, npairs = compact_topk(
+                cand, ok, mask8, rays_eff=rays_eff if two_level else None)
+            if not two_level and not stale_round_masks:
+                pm = refine(pt, psb, npairs, rays_eff)
+            out = execute(pt, psb, pm, npairs, prior=out)
             return out, npairs, _bits(pm)
 
-        # round 0 always runs (prior=None initializes the accumulator
-        # to t_cap/-1 inside _run_kernel)
-        cand0 = sb_sorted[:, :k]
-        ctn0 = tn_sorted[:, :k]
-        ok0 = ctn0 < INF_DIST
-        pt0, psb0, pm0, np0 = compact_topk(cand0, ok0, tct, mask8)
-        out = _run_kernel(pt0, psb0, pm0, np0, rays, exec_planes,
-                          nt, nsb, window, pairs_per_step=pps,
-                          kernel_form=kernel_form)
+        # round 0 always runs (no prior: the execution starts from the
+        # rays' caps)
+        ok0 = tn_sorted[:, :k] < INF_DIST
+        pt0, psb0, pm0, np0 = compact_topk(sb_sorted[:, :k], ok0, mask8)
+        out = execute(pt0, psb0, pm0, np0)
 
         def cond(state):
-            rr, out, tile_cap, _, _ = state
+            rr, out, _, _ = state
             # exact: per tile, candidates are tn-ascending, so if the
             # round's FIRST candidate cannot beat the tile's worst
             # live cap, none can
             nxt = jax.lax.dynamic_slice(tn_sorted, (0, rr * k),
                                         (nt, 1))[:, 0]
+            tile_cap = jnp.max(caps_from(out), axis=1)
             return (rr < n_rounds) & jnp.any(nxt <= tile_cap)
 
         def body(state):
-            rr, out, _, npa, bca = state
-            tct_eff, tile_cap = caps_from(out)
-            out, npr, bcr = do_round(rr, out, tct_eff, tile_cap)
-            _, tile_cap = caps_from(out)
-            return rr + 1, out, tile_cap, npa + npr, bca + bcr
+            rr, out, npa, bca = state
+            out, npr, bcr = do_round(rr, out, caps_from(out))
+            return rr + 1, out, npa + npr, bca + bcr
 
-        _, tile_cap0 = caps_from(out)
-        _, out, _, np_acc, bc_acc = jax.lax.while_loop(
-            cond, body, (jnp.int32(1), out, tile_cap0, np0, _bits(pm0)))
+        _, out, np_acc, bc_acc = jax.lax.while_loop(
+            cond, body, (jnp.int32(1), out, np0, _bits(pm0)))
         if with_counters:
             counters = dict(n_pairs=np_acc, mt_subblocks=bc_acc)
 
-    out = out.reshape(nt + 1, TILE, 8)[:nt]
-    t = out[:, :, 0]
-    slot = jax.lax.bitcast_convert_type(out[:, :, 1], jnp.int32)
-
-    t, slot = (x.reshape(nt * TILE)[:r] for x in (t, slot))
+    t, slot = (x[:r] for x in out)
     if not isinstance(order, str):
         inv_perm = order[1]
         t, slot = t[inv_perm], slot[inv_perm]

@@ -1,8 +1,8 @@
-"""Stackless BVH traversal on TPU vector lanes.
+"""Stackless BVH traversal on vector lanes.
 
 Replaces ``ShadersSDK/raytracing/directTraverse.comp`` (511 LoC: per-ray
 state machine, 8-entry shared-memory stack + global spill, baked-hit
-sort/dedup).  The TPU formulation: every ray holds one ``node`` pointer;
+sort/dedup).  The array formulation: every ray holds one ``node`` pointer;
 one bulk `lax.while_loop` steps all rays together (masked lanes), each
 step doing a gathered AABB slab test plus — for rays parked at a leaf —
 a K-wide Möller–Trumbore test against the leaf's reordered triangles.
@@ -146,10 +146,10 @@ def _traverse2(bvh: BVH, o, d, t_cap, any_hit: bool):
         return node, parked, bt
 
     def walk_body(state):
-        # Unrolled x8: a while_loop with a tiny single-gather body hits a
-        # pathological (~300s) XLA-TPU compile path; unrolling compiles in
-        # seconds and amortizes the cond reduction. Extra steps after a
-        # lane parks are no-ops (its `walking` mask goes false).
+        # Unrolled x8: amortizes the cond reduction over eight steps and
+        # keeps the while_loop body from being a tiny single gather.
+        # Extra steps after a lane parks are no-ops (its `walking` mask
+        # goes false).
         node, parked, bt = state
         for _ in range(8):
             node, parked, bt = _walk_step(node, parked, bt)

@@ -2,9 +2,8 @@
 
 Mirrors the reference glTF viewer's flags (``Viewer.cpp:22-50``:
 ``-m/--model -s/--scale -d/--depth`` plus ``-di/--dir``) with additions
-for resolution, sample count and output path.  There is no window (TPU
-hosts are headless); progressive frames accumulate and the result is
-written as PNG + HDR.
+for resolution, sample count and output path.  There is no window;
+progressive frames accumulate and the result is written as PNG + HDR.
 
     python -m prismarine_core_tpu.cli --model cow.obj --scale 1.0 \
         --depth 4 --res 640x480 --frames 16 --out render.png
@@ -19,8 +18,8 @@ import time
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="prismarine-tpu-render",
-        description="TPU-native path tracer (headless)")
+        prog="prismarine-render",
+        description="differentiable path tracer (headless)")
     p.add_argument("-m", "--model", help="OBJ file (default: built-in "
                    "cornell scene)")
     p.add_argument("-s", "--scale", type=float, default=1.0,
@@ -52,8 +51,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "texels (MIS; recommended with HDR sun skies)")
     p.add_argument("--intersector", default="pallas",
                    choices=["brute", "bvh", "packet", "pallas"],
-                   help="intersection backend (default: the fused "
-                        "Pallas fast path)")
+                   help="intersection backend (default: the packet "
+                        "fast path with its Pallas pair kernel)")
     # --- production performance knobs (the bench configuration) ---
     p.add_argument("--coherent", action="store_true",
                    help="coherent bounce sampling (Sadeghi et al. 2009): "
@@ -62,36 +61,29 @@ def build_parser() -> argparse.ArgumentParser:
                         "main-metric configuration")
     p.add_argument("--reuse-order", action="store_true",
                    help="reuse bounce 1's coherence sort for later "
-                        "bounces (saves one u32 sort per bounce; "
-                        "measured slower on the hall bench — see "
-                        "PERF.md r3 item 4)")
+                        "bounces (saves one u32 sort per bounce)")
     p.add_argument("--sort-mode", default="full",
                    choices=["full", "packed", "group"],
                    help="ray coherence sort variant (packet.py:"
                         "_sort_pad_rays)")
     p.add_argument("--cull-impl", default="pallas2",
                    choices=["pallas2", "pallas", "xla"],
-                   help="dense cull implementation (pallas2 = round-5 "
-                        "two-level superblock cull + pair-driven "
-                        "block refine, the production default; "
-                        "pallas = round-4 block-granular kernel)")
+                   help="dense cull scheme (pallas2 = two-level "
+                        "superblock cull + pair-driven block refine, "
+                        "the production default; pallas = one-level "
+                        "block-granular cull; xla = same as pallas2)")
     p.add_argument("--strategy", default="",
                    choices=["", "single", "two_round", "rounds"],
                    help="closest-hit execution strategy override "
-                        "(default: measured per-query-type choices)")
+                        "(default: per-query-type choices)")
     p.add_argument("--strategy-k", type=int, default=16,
                    help="per-round superblock budget K for the "
                         "two_round/rounds strategies (0 = default 8; "
                         "the bench runs 16)")
-    p.add_argument("--cull-window", type=int, default=8192,
-                   help="pair window of the two-level cull's refine "
-                        "kernel (the bench runs 8192)")
-    p.add_argument("--cull-pps", type=int, default=16,
-                   help="pair-cull alignment (16 fills all 128 refine-"
-                        "kernel lanes; the bench runs 16)")
-    p.add_argument("--pairs-per-step", type=int, default=8,
-                   help="same-tile pairs per kernel grid step "
-                        "(fixed-cost amortization; the bench runs 8)")
+    p.add_argument("--anyhit-strategy", default="",
+                   choices=["", "single", "two_round", "rounds"],
+                   help="any-hit (shadow) execution strategy override "
+                        "(the bench runs single)")
     p.add_argument("--stale-round-masks", action="store_true",
                    help="keep round-0 block masks across any-hit "
                         "rounds (faster for coherent workloads)")
@@ -113,6 +105,10 @@ def main(argv=None) -> int:
 
     import numpy as np
 
+    from prismarine_core_tpu.utils.compile_cache import (
+        configure_compile_cache)
+    configure_compile_cache()
+
     from prismarine_core_tpu.models.camera import Camera
     from prismarine_core_tpu.models.scene import (
         Scene, make_cornell_scene, make_sun_plane_scene)
@@ -133,10 +129,8 @@ def main(argv=None) -> int:
             soup, mats, texs = load_obj(args.model, scale=args.scale)
         env = Environment.constant((0.4, 0.55, 0.75))
         if args.env:
-            from PIL import Image
-            img = np.asarray(Image.open(args.env).convert("RGB"),
-                             np.float32) / 255.0
-            env = Environment.from_image(img)
+            from prismarine_core_tpu.utils.image import load_image_rgba
+            env = Environment.from_image(load_image_rgba(args.env)[..., :3])
         scene = Scene.assemble(soup, mats, SphereLights.suns(), env, texs)
         default_eye, default_target = (3.0, 2.0, 5.0), (0.0, 0.5, 0.0)
     elif args.scene == "cornell":
@@ -163,11 +157,9 @@ def main(argv=None) -> int:
                        reuse_bounce_order=args.reuse_order,
                        sort_mode=args.sort_mode,
                        cull_impl=args.cull_impl,
-                       cull_window=args.cull_window,
-                       cull_pps=args.cull_pps,
                        closest_strategy=args.strategy,
                        closest_k=args.strategy_k,
-                       pairs_per_step=args.pairs_per_step,
+                       anyhit_strategy=args.anyhit_strategy,
                        stale_round_masks=args.stale_round_masks,
                        rr_start_bounce=args.rr_start_bounce,
                        rr_min_q=args.rr_min_q)

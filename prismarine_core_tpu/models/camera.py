@@ -1,6 +1,6 @@
 """Camera model + primary ray generation.
 
-TPU-native replacement for ``ShadersSDK/raytracing/camera.comp``: instead of
+Replacement for ``ShadersSDK/raytracing/camera.comp``: instead of
 unprojecting through inverse view/projection matrices per pixel
 (``camera.comp:61-63``), rays are generated directly from a look-at frame —
 a fully vectorized, differentiable closed form.  Supports the same feature

@@ -1,8 +1,8 @@
-"""Triangle geometry: the TPU-native scene data model.
+"""Triangle geometry: the scene data model.
 
 The reference stores triangles in "mosaic" RGBA32F textures written by an
 accessor-based vertex-pulling kernel (``ShadersSDK/vertex/loader.comp:32-152``,
-``Include/Prismarine/VertexInstance.hpp:37-79``).  On TPU the idiomatic
+``Include/Prismarine/VertexInstance.hpp:37-79``).  In JAX the idiomatic
 equivalent is a padded structure-of-arrays triangle soup with static shapes:
 fixed capacity, a validity mask for padding, and all per-vertex attributes
 as dense ``f32[T, ...]`` arrays that shard cleanly over a device mesh.
@@ -61,9 +61,9 @@ class TriangleSoup:
         """Build from an indexed mesh; computes smooth/face normals if absent.
 
         The indexed→soup expansion replaces the reference's vertex-pulling
-        kernel (``loader.comp:72-151``) — on TPU we expand once at load time
+        kernel (``loader.comp:72-151``) — here we expand once at load time
         rather than per frame, because the soup layout is what traversal and
-        gradient kernels want resident in HBM.
+        gradient kernels want resident in device memory.
         """
         vertices = np.asarray(vertices, np.float32)
         faces = np.asarray(faces, np.int64)

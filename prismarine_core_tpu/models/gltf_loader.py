@@ -15,6 +15,7 @@ metallic-roughness / emissive factors and baseColorTexture images.
 from __future__ import annotations
 
 import base64
+import io
 import json
 import os
 import struct
@@ -25,6 +26,7 @@ import numpy as np
 from prismarine_core_tpu.models.geometry import TriangleSoup
 from prismarine_core_tpu.models.materials import MaterialTable
 from prismarine_core_tpu.models.textures import TextureStack
+from prismarine_core_tpu.utils.image import load_image_rgba
 
 _COMPONENT_DTYPES = {
     5120: np.int8, 5121: np.uint8, 5122: np.int16, 5123: np.uint16,
@@ -137,33 +139,22 @@ def load_gltf(
         """glTF texture index -> TextureStack slot (decode on demand)."""
         if tex_index in img_cache:
             return img_cache[tex_index]
-        try:
-            tex = gltf["textures"][tex_index]
-            img = gltf["images"][tex["source"]]
-            if "uri" in img and not img["uri"].startswith("data:"):
-                from PIL import Image
-                arr = np.asarray(
-                    Image.open(os.path.join(base, img["uri"]))
-                    .convert("RGBA"), np.float32) / 255.0
+        tex = gltf["textures"][tex_index]
+        img = gltf["images"][tex["source"]]
+        if "uri" in img and not img["uri"].startswith("data:"):
+            src = os.path.join(base, img["uri"])
+        else:
+            if "uri" in img:
+                raw = base64.b64decode(img["uri"].split(",", 1)[1])
             else:
-                if "uri" in img:
-                    raw = base64.b64decode(img["uri"].split(",", 1)[1])
-                else:
-                    view = gltf["bufferViews"][img["bufferView"]]
-                    s = view.get("byteOffset", 0)
-                    raw = bufs[view["buffer"]][s: s + view["byteLength"]]
-                import io
-
-                from PIL import Image
-                arr = np.asarray(Image.open(io.BytesIO(raw))
-                                 .convert("RGBA"), np.float32) / 255.0
-            slot = len(images)
-            images.append(arr)
-            img_cache[tex_index] = slot
-            return slot
-        except Exception:
-            img_cache[tex_index] = -1
-            return -1
+                view = gltf["bufferViews"][img["bufferView"]]
+                s = view.get("byteOffset", 0)
+                raw = bufs[view["buffer"]][s: s + view["byteLength"]]
+            src = io.BytesIO(raw)
+        slot = len(images)
+        images.append(load_image_rgba(src))
+        img_cache[tex_index] = slot
+        return slot
 
     for m in gltf.get("materials", []):
         pbr = m.get("pbrMetallicRoughness", {})

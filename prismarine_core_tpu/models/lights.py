@@ -1,4 +1,4 @@
-"""Sphere lights — TPU-native analog of ``LightUniformStruct``.
+"""Sphere lights — analog of ``LightUniformStruct``.
 
 The reference models its sun as a sphere positioned at
 ``normalize(lightVector.xyz) * lightVector.w + lightOffset`` with radius

@@ -1,4 +1,4 @@
-"""Material table — TPU-native analog of ``VirtualMaterial`` + MaterialSet.
+"""Material table — analog of ``VirtualMaterial`` + MaterialSet.
 
 The reference keeps a CPU vector of ``VirtualMaterial`` records uploaded to
 an SSBO (``Include/Prismarine/Structs.hpp:236-262``,

@@ -9,8 +9,8 @@ Supported: v/vn/vt, polygonal ``f`` with triangle-fan splitting, negative
 indices, usemtl/mtllib, quads (the reference's loader.comp also handles
 quads, ``loader.comp:72-151``).  MTL: Kd/Ks/Ke/Ns/d/Tr/Ni plus the four
 texture kinds the reference binds per material (``surface.comp:102-163``):
-map_Kd/map_Ks/map_Ke/map_bump|bump|norm (loaded when an image decoder is
-importable, else the slot is ignored).
+map_Kd/map_Ks/map_Ke/map_bump|bump|norm (decoded with Pillow, which is
+optional: a textured MTL without it raises an error naming the package).
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import numpy as np
 from prismarine_core_tpu.models.geometry import TriangleSoup
 from prismarine_core_tpu.models.materials import MaterialTable
 from prismarine_core_tpu.models.textures import TextureStack
+from prismarine_core_tpu.utils.image import load_image_rgba
 
 
 def _parse_mtl(path: str) -> dict[str, dict]:
@@ -70,15 +71,6 @@ def _parse_mtl(path: str) -> dict[str, dict]:
     return mats
 
 
-def _try_load_image(path: str):
-    try:
-        from PIL import Image  # pillow ships with matplotlib deps
-        img = np.asarray(Image.open(path).convert("RGBA"), np.float32)
-        return img / 255.0
-    except Exception:
-        return None
-
-
 #: MTL texture statement -> MaterialTable texture slot.  Mirrors the four
 #: bindless texture kinds ``surface.comp:102-163`` consumes
 #: (diffuse/specular/emissive/bump).
@@ -100,12 +92,9 @@ def _build_materials(mat_names, mtl: dict, base: str):
                 continue
             p = os.path.join(base, d[mtl_key])
             if p not in path_cache:
-                img = _try_load_image(p)
-                path_cache[p] = -1 if img is None else len(images)
-                if img is not None:
-                    images.append(img)
-            if path_cache[p] >= 0:
-                d[slot] = path_cache[p]
+                path_cache[p] = len(images)
+                images.append(load_image_rgba(p))
+            d[slot] = path_cache[p]
         mat_dicts.append(d)
     if not mat_dicts:
         mat_dicts.append({"diffuse": (0.7, 0.7, 0.7)})

@@ -1,8 +1,8 @@
-"""Texture registry — TPU-native analog of the bindless texture system.
+"""Texture registry — analog of the bindless texture system.
 
 The reference makes every texture a resident ARB_bindless_texture handle
 passed to shaders in a handle array (``TextureSet.inl:15-38``,
-``surface.comp:46-59``).  The TPU equivalent of "bindless" is a stacked
+``surface.comp:46-59``).  The equivalent of "bindless" here is a stacked
 dense array ``f32[N, H, W, 4]`` plus integer indexing: a gather on the
 first axis is exactly a handle dereference, and it is differentiable.
 
@@ -34,10 +34,9 @@ class TextureStack:
     #: entry (i, y, x) holds the four bilinear corner texels
     #: [(y,x), (y,x+1), (y+1,x), (y+1,x+1)] (wrap at each texture's
     #: NATIVE size) concatenated on the channel axis, so one bilinear
-    #: fetch is ONE [R]-row gather instead of four — TPU row gathers
-    #: carry a fixed per-gather cost, and the 4 kinds x 4 corners per
-    #: hit were ~28% of a textured frame (PERF r4 item 12).  4x texture
-    #: memory; build with ``with_packed_corners()``.
+    #: fetch is ONE [R]-row gather instead of four (4 kinds x 4 corners
+    #: per hit otherwise).  4x texture memory; build with
+    #: ``with_packed_corners()``.
     quad: jax.Array | None = None
     #: STATIC (jit-meta) marker for the all-white placeholder stack:
     #: texture-less scenes let the integrator skip every fetch at
@@ -131,11 +130,8 @@ def _sharded_texel_rows(mesh, arr, tid, y, x):
     elsewhere, and one psum('model') assembles the result (rays stay
     sharded over 'data').  The multi-device analog of a bindless handle
     dereference."""
+    from jax import shard_map
     from jax.sharding import PartitionSpec as P
-    try:
-        from jax import shard_map
-    except ImportError:  # pragma: no cover
-        from jax.experimental.shard_map import shard_map
 
     def local(a, tid, y, x):
         nl = a.shape[0]

@@ -1,14 +1,14 @@
 """Intersection kernels: ray-triangle, ray-AABB, ray-sphere.
 
-TPU-native replacements for the reference's GLSL intersection library
+Replacements for the reference's GLSL intersection library
 (Möller–Trumbore ×1/×2 ``ShadersSDK/include/vertex.glsl:51-189``; slab AABB
 tests ``mathlib.glsl:107-193``; sphere ``shadinglib.glsl:32-48``).  All
 kernels are shape-polymorphic over leading batch dims, branch-free, and
 differentiable.
 
 The brute-force closest-hit intersector streams triangle *blocks* through a
-`lax.scan` with a running-best combine — the TPU version of a wavefront
-intersection dispatch: fixed memory footprint (R x TB intermediates),
+`lax.scan` with a running-best combine — the array-program version of a
+wavefront intersection dispatch: fixed memory footprint (R x TB intermediates),
 compiler-fused elementwise chains, and a reduction instead of atomics.
 """
 

@@ -1,8 +1,8 @@
 """3D Morton codes on uint32 lanes.
 
-TPU-native replacement for ``ShadersSDK/include/morton.glsl``: the
+Replacement for ``ShadersSDK/include/morton.glsl``: the
 reference prefers 64-bit codes (21 bits/axis, ``morton.glsl:37-51``) which
-need int64 — poor on TPU vector lanes.  We provide:
+need int64, which JAX disables by default.  We provide:
 
 * ``morton30``: 10 bits/axis packed in one uint32 (``morton.glsl:55-80``'s
   32-bit fallback) — the default BVH build key;

@@ -1,50 +1,41 @@
-"""Pallas TPU kernel: dense (ray-tile x triangle-superblock) intersection
-— the hot op of the framework.
+"""Exact execution of a (ray tile x triangle superblock) pair list — the
+hot op of the packet intersector.
 
-Pointer-chasing BVH walks are latency-bound on TPU (every step is a
-~4 B/lane random HBM gather); this kernel restructures intersection as
-dense batched work: one 128-ray tile against one 8-block superblock
-(1024 Morton-adjacent triangle slots) per grid step, everything in VMEM.
+The caller (accel/packet.py) sorts rays into TILEs of 128, culls them
+against the Morton-ordered triangle blocks and compacts the surviving
+(tile, superblock) pairs TILE-MAJOR, each with an 8-bit mask of the
+superblock's sub-blocks that some ray of the tile can reach.  This
+module runs the exact Möller–Trumbore test of every ray of a pair's
+tile against every triangle of the pair's live sub-blocks and keeps the
+closest hit per ray.  Two executors share that contract:
 
-Scheduling (see accel/packet.py for the producer):
+* ``pallas_execute_pairs`` — a Pallas kernel on the Triton route.  One
+  program owns ``rb`` rays of one tile and loops over that tile's pairs
+  (``[start, end)`` offsets built in XLA by ``tile_offsets``), their set
+  mask bits and ``tc``-wide triangle chunks, keeping the rays and their
+  running best in registers; it writes its result once.  No atomics, no
+  cross-program merge: the pair list is tile-major, so each tile's work
+  belongs to its own programs.
+* ``xla_execute_pairs`` — the plain XLA version of the same contract:
+  windows of pairs, a fused [pairs, 128, 1024] Möller–Trumbore grid
+  reduced to per-pair candidates, merged per ray with a scatter-min.
+  It is the kernel's reference (tests, chip_smoke.py).
 
-  * the caller culls rays at BLOCK granularity (ops/pallas_cull.py;
-    superblock candidates and the per-pair 8-bit block masks fall out
-    of one pass) and compacts (tile, superblock) pairs tile-major with
-    one windowed packed scatter — the r1 pipeline's ~15M-element
-    quad-list scatters were its hottest stage at 173 ms/query;
-  * per grid step, BlockSpec index maps pull the superblock's triangle
-    planes (one contiguous 64 KB DMA, double-buffered by Mosaic)
-    straight from HBM via the scalar-prefetched pair list;
-  * the kernel runs the dense 128x128 Möller–Trumbore ONLY for
-    sub-blocks whose mask bit is set — `pl.when` on an SMEM scalar, the
-    cheap form of TPU control flow (an earlier revision computed the
-    mask in-kernel with vector->scalar reductions; the 8 pipeline syncs
-    per step made it ~10x slower than the MT itself).
+Both break ties identically: at equal ``t`` the lowest slot wins, and a
+hit at exactly the ray's cap never replaces the prior (slot -1 is the
+lowest slot).  That makes the result independent of the order in which
+pairs run.
 
-Layouts (all Mosaic-legal block shapes):
-  rays   f32[(nt+1)*TILE, 16] — block (TILE, 16); component columns
-         [ox oy oz dx dy dz t_cap pad ...]; rays land on sublanes.
-  planes f32[nsb+1, 16, SB*BLOCK] — per-superblock SoA triangle
-         components [v0xyz e1xyz e2xyz valid 0...]; triangles land on
-         lanes, sub-block k occupying lanes [128k, 128k+128).  Row
-         TC_VALID is 0 for padding slots; the trailing superblock is
-         all-zero (the pair-padding sentinel).
-  out    f32[(nt+1)*TILE, 8] — block (TILE, 8); columns [t slot 0...]
-         (slot is an int32 BITCAST into the f32 column; Mosaic has no
-         int<->float converts on this path).  Barycentrics are NOT
-         tracked: callers re-evaluate the winning triangle
-         differentiably anyway (accel/packet.py).
-
-The hot math is [TILE, BLOCK] = [128, 128] f32 — the exact VPU register
-shape — written component-wise (the 128-wide generalization of the
-reference's 2-wide packed Möller–Trumbore, ``vertex.glsl:117-189``).
-Pairs of the same tile are consecutive (tile-major pair list), so the
-output block stays VMEM-resident and accumulates the running closest hit
-across steps (sequential grid => race-free, no atomics — the reference
-needs warp-aggregated atomics for the same job,
-``ballotlib.glsl:106-132``).  Windows of pairs execute inside a
-while_loop so cost adapts to the scene without recompilation.
+Layouts:
+  rays   f32[(nt+1)*TILE, RAY_COLS] — columns [o d t_cap pad inv_d ...];
+         the last tile is the all-zero sentinel (t_cap 0, never hit).
+  planes f32[nsb+1, 16, SB*BLOCK] — per-superblock SoA triangle rows
+         [v0xyz e1xyz e2xyz valid 0...]; sub-block k occupies columns
+         [128k, 128k+128).  Row TC_VALID is 0 for padding slots; the
+         trailing superblock is all-zero (the pair-padding sentinel).
+  result (t f32[(nt+1)*TILE], slot i32[(nt+1)*TILE]) — slot -1 = no hit
+         under the cap.  Barycentrics are not tracked: callers
+         re-evaluate the winning triangle differentiably.
 """
 
 from __future__ import annotations
@@ -54,7 +45,7 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltr
 
 from prismarine_core_tpu.utils.config import INF_DIST, PZERO
 
@@ -62,563 +53,242 @@ TILE = 128      # rays per tile
 BLOCK = 128     # triangle slots per sub-block
 SB = 8          # sub-blocks per superblock
 _DET_EPS = 1e-10
+_NO_SLOT = 2 ** 30   # larger than any slot; loses every tie
 
-# ray component columns.  RC_ONE (constant 1) and RC_CX..RC_CZ
-# (c = (o - scene_center) x d) exist for the "mxu" kernel form: they
-# make every Moller-Trumbore numerator a LINEAR form in the ray columns
-# (see mxu_planes_from_planes), so one [TILE,16]x[16,4*BLOCK] matmul on
-# the MXU produces det/u/v/t for a whole sub-block.
-(RC_OX, RC_OY, RC_OZ, RC_DX, RC_DY, RC_DZ, RC_TCAP, RC_ONE,
- RC_IVX, RC_IVY, RC_IVZ, RC_CX, RC_CY, RC_CZ) = range(14)
-_RC_P0 = RC_ONE  # backwards-compat alias (column 7 was padding pre-r5)
+# ray component columns
+(RC_OX, RC_OY, RC_OZ, RC_DX, RC_DY, RC_DZ, RC_TCAP, _RC_PAD,
+ RC_IVX, RC_IVY, RC_IVZ) = range(11)
 RAY_COLS = 16
 # triangle component rows
 (TC_V0X, TC_V0Y, TC_V0Z, TC_E1X, TC_E1Y, TC_E1Z,
  TC_E2X, TC_E2Y, TC_E2Z, TC_VALID) = range(10)
-# quantity order of the mxu coefficient planes (per sub-block column
-# groups of BLOCK lanes each)
-MXU_Q = 4          # det, u_num, v_num, t_num
-# output columns
-OC_T, OC_SLOT = range(2)
-
-
-def _sb_kernel(pps, pair_tile, pair_sb, pair_mask, first_step,
-               ray_ref,                        # [TILE, 16]
-               *refs):                         # pps tri refs, prior,
-                                               # out, run_tt, run_k
-    tri_refs = refs[:pps]                      # each [1, 16, SB*BLOCK]
-    prior_ref, out_ref, run_tt, run_k = refs[pps:]
-    i = pl.program_id(0)
-
-    @pl.when(first_step[i] == 1)
-    def _init():
-        # first visit of this tile *within this window*: seed the VMEM
-        # accumulator from the previous window's best (or the caller's
-        # t_cap/-1 initialization on the first window).
-        out_ref[:, :] = prior_ref[:, :]
-
-    def rcol(c):
-        return ray_ref[:, c][:, None]
-
-    rox, roy, roz = rcol(RC_OX), rcol(RC_OY), rcol(RC_OZ)
-    rdx, rdy, rdz = rcol(RC_DX), rcol(RC_DY), rcol(RC_DZ)
-
-    # DEFERRED-ARGMIN accumulation: each live sub-block folds its
-    # candidate (t, j*SB+k) into a step-local [TILE, BLOCK] running min
-    # with three elementwise ops; the expensive cross-lane argmin + the
-    # accumulator merge run ONCE per STEP (= ``pps`` same-tile pairs)
-    # instead of once per sub-block.  Strict < keeps tie-breaking
-    # (lowest pair, then lowest k, then lowest lane) identical to the
-    # sequential form, so results are bit-identical.
-    run_tt[:, :] = jnp.full((TILE, BLOCK), INF_DIST, jnp.float32)
-    run_k[:, :] = jnp.zeros((TILE, BLOCK), jnp.float32)
-
-    any_mask = pair_mask[i * pps]
-    for j in range(1, pps):
-        any_mask = any_mask | pair_mask[i * pps + j]
-
-    for j in range(pps):
-        mask_j = pair_mask[i * pps + j]
-        for k in range(SB):
-            @pl.when((mask_j >> k) & 1 == 1)
-            def _mt(j=j, k=k):
-                def trow(c):
-                    return tri_refs[j][0, c,
-                                       k * BLOCK:(k + 1) * BLOCK][None, :]
-
-                e1x, e1y, e1z = trow(TC_E1X), trow(TC_E1Y), trow(TC_E1Z)
-                e2x, e2y, e2z = trow(TC_E2X), trow(TC_E2Y), trow(TC_E2Z)
-
-                px = rdy * e2z - rdz * e2y
-                py = rdz * e2x - rdx * e2z
-                pz = rdx * e2y - rdy * e2x
-                det = e1x * px + e1y * py + e1z * pz
-                inv = 1.0 / jnp.where(jnp.abs(det) < _DET_EPS,
-                                      _DET_EPS, det)
-
-                sx = rox - trow(TC_V0X)
-                sy = roy - trow(TC_V0Y)
-                sz = roz - trow(TC_V0Z)
-                uu = (sx * px + sy * py + sz * pz) * inv
-                qx = sy * e1z - sz * e1y
-                qy = sz * e1x - sx * e1z
-                qz = sx * e1y - sy * e1x
-                vv = (rdx * qx + rdy * qy + rdz * qz) * inv
-                tt = (e2x * qx + e2y * qy + e2z * qz) * inv
-
-                ok = ((jnp.abs(det) >= _DET_EPS)
-                      & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
-                      & (tt > PZERO) & (trow(TC_VALID) > 0.5))
-                tt = jnp.where(ok, tt, INF_DIST)
-
-                better = tt < run_tt[:, :]
-                run_k[:, :] = jnp.where(better,
-                                        jnp.float32(j * SB + k),
-                                        run_k[:, :])
-                run_tt[:, :] = jnp.where(better, tt, run_tt[:, :])
-
-    @pl.when(any_mask != 0)
-    def _merge():
-        rt = run_tt[:, :]
-        best = out_ref[:, OC_T]
-        slot_best = jax.lax.bitcast_convert_type(
-            out_ref[:, OC_SLOT], jnp.int32)
-
-        j = jnp.argmin(rt, axis=1)                         # [TILE]
-        tj = jnp.min(rt, axis=1)
-        better = tj < best
-
-        onehot = (jax.lax.broadcasted_iota(jnp.int32, (TILE, BLOCK), 1)
-                  == j[:, None])
-        kj = jnp.sum(jnp.where(onehot, run_k[:, :], 0.0),
-                     axis=1).astype(jnp.int32)             # [TILE]
-
-        # decode (pair jj, sub-block kk) and select that pair's base
-        # slot (scalar multipliers over vector predicates)
-        jj = kj // SB
-        kk = kj - jj * SB
-        base = jnp.zeros_like(kj)
-        for jx in range(pps):
-            base = jnp.where(jj == jx,
-                             pair_sb[i * pps + jx] * (SB * BLOCK), base)
-
-        best = jnp.where(better, tj, best)
-        slot_best = jnp.where(better,
-                              base + kk * BLOCK + j,
-                              slot_best)
-
-        colid = jax.lax.broadcasted_iota(jnp.int32, (TILE, 8), 1)
-        out = jnp.where(colid == OC_T, best[:, None],
-                        out_ref[:, :])
-        out = jnp.where(
-            colid == OC_SLOT,
-            jax.lax.bitcast_convert_type(
-                slot_best, jnp.float32)[:, None],
-            out)
-        out_ref[:, :] = out
-
-
-def _sb_kernel_mt2(pps, pair_tile, pair_sb, pair_mask, first_step,
-                   ray_ref,                    # [TILE, 16]
-                   *refs):                     # pps tri refs, prior,
-                                               # out, run_tt, run_k
-    """Two-sub-block-interleaved variant of _sb_kernel (kernel_form
-    "mt2"): each predicated region computes TWO independent
-    Moller-Trumbore chains so the VPU can overlap their dependency
-    chains (r4 item 9 measured dependency DEPTH, not op count, as the
-    binding resource).  Cost: when only one bit of a 2-bit mask group
-    is set, the dead sub-block's grids are computed and discarded
-    (its fold is gated by a scalar select), so the win depends on
-    mask-bit pairing density.  Tie-breaking: sub-block k folds before
-    k+1, preserving the sequential form's ordering bit-for-bit."""
-    tri_refs = refs[:pps]                      # each [1, 16, SB*BLOCK]
-    prior_ref, out_ref, run_tt, run_k = refs[pps:]
-    i = pl.program_id(0)
-
-    @pl.when(first_step[i] == 1)
-    def _init():
-        out_ref[:, :] = prior_ref[:, :]
-
-    def rcol(c):
-        return ray_ref[:, c][:, None]
-
-    rox, roy, roz = rcol(RC_OX), rcol(RC_OY), rcol(RC_OZ)
-    rdx, rdy, rdz = rcol(RC_DX), rcol(RC_DY), rcol(RC_DZ)
-
-    run_tt[:, :] = jnp.full((TILE, BLOCK), INF_DIST, jnp.float32)
-    run_k[:, :] = jnp.zeros((TILE, BLOCK), jnp.float32)
-
-    any_mask = pair_mask[i * pps]
-    for j in range(1, pps):
-        any_mask = any_mask | pair_mask[i * pps + j]
-
-    def mt_grids(j, k):
-        """One sub-block's masked-hit grid (tt with INF on misses)."""
-        def trow(c):
-            return tri_refs[j][0, c,
-                               k * BLOCK:(k + 1) * BLOCK][None, :]
-
-        e1x, e1y, e1z = trow(TC_E1X), trow(TC_E1Y), trow(TC_E1Z)
-        e2x, e2y, e2z = trow(TC_E2X), trow(TC_E2Y), trow(TC_E2Z)
-
-        px = rdy * e2z - rdz * e2y
-        py = rdz * e2x - rdx * e2z
-        pz = rdx * e2y - rdy * e2x
-        det = e1x * px + e1y * py + e1z * pz
-        inv = 1.0 / jnp.where(jnp.abs(det) < _DET_EPS, _DET_EPS, det)
-
-        sx = rox - trow(TC_V0X)
-        sy = roy - trow(TC_V0Y)
-        sz = roz - trow(TC_V0Z)
-        uu = (sx * px + sy * py + sz * pz) * inv
-        qx = sy * e1z - sz * e1y
-        qy = sz * e1x - sx * e1z
-        qz = sx * e1y - sy * e1x
-        vv = (rdx * qx + rdy * qy + rdz * qz) * inv
-        tt = (e2x * qx + e2y * qy + e2z * qz) * inv
-
-        ok = ((jnp.abs(det) >= _DET_EPS)
-              & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
-              & (tt > PZERO) & (trow(TC_VALID) > 0.5))
-        return jnp.where(ok, tt, INF_DIST)
-
-    for j in range(pps):
-        mask_j = pair_mask[i * pps + j]
-        for k0 in range(0, SB, 2):
-            @pl.when((mask_j >> k0) & 3 != 0)
-            def _mt2(j=j, k0=k0):
-                # both chains in one straight-line region -> the
-                # compiler interleaves their independent ops
-                tt_a = mt_grids(j, k0)
-                tt_b = mt_grids(j, k0 + 1)
-                on_a = ((mask_j >> k0) & 1) == 1          # scalars
-                on_b = ((mask_j >> (k0 + 1)) & 1) == 1
-                tt_a = jnp.where(on_a, tt_a, INF_DIST)
-                tt_b = jnp.where(on_b, tt_b, INF_DIST)
-
-                better = tt_a < run_tt[:, :]
-                run_k[:, :] = jnp.where(better, jnp.float32(j * SB + k0),
-                                        run_k[:, :])
-                run_tt[:, :] = jnp.where(better, tt_a, run_tt[:, :])
-                better = tt_b < run_tt[:, :]
-                run_k[:, :] = jnp.where(better,
-                                        jnp.float32(j * SB + k0 + 1),
-                                        run_k[:, :])
-                run_tt[:, :] = jnp.where(better, tt_b, run_tt[:, :])
-
-    @pl.when(any_mask != 0)
-    def _merge():
-        rt = run_tt[:, :]
-        best = out_ref[:, OC_T]
-        slot_best = jax.lax.bitcast_convert_type(
-            out_ref[:, OC_SLOT], jnp.int32)
-
-        j = jnp.argmin(rt, axis=1)                         # [TILE]
-        tj = jnp.min(rt, axis=1)
-        better = tj < best
-
-        onehot = (jax.lax.broadcasted_iota(jnp.int32, (TILE, BLOCK), 1)
-                  == j[:, None])
-        kj = jnp.sum(jnp.where(onehot, run_k[:, :], 0.0),
-                     axis=1).astype(jnp.int32)             # [TILE]
-
-        jj = kj // SB
-        kk = kj - jj * SB
-        base = jnp.zeros_like(kj)
-        for jx in range(pps):
-            base = jnp.where(jj == jx,
-                             pair_sb[i * pps + jx] * (SB * BLOCK), base)
-
-        best = jnp.where(better, tj, best)
-        slot_best = jnp.where(better,
-                              base + kk * BLOCK + j,
-                              slot_best)
-
-        colid = jax.lax.broadcasted_iota(jnp.int32, (TILE, 8), 1)
-        out = jnp.where(colid == OC_T, best[:, None],
-                        out_ref[:, :])
-        out = jnp.where(
-            colid == OC_SLOT,
-            jax.lax.bitcast_convert_type(
-                slot_best, jnp.float32)[:, None],
-            out)
-        out_ref[:, :] = out
-
-
-def mxu_planes_from_planes(planes, center):
-    """Determinant-form coefficient planes for the "mxu" kernel.
-
-    Moller-Trumbore's four per-pair quantities are triple products and
-    therefore LINEAR in the ray feature vector
-    ``[o, d, 1, c]`` with ``c = (o - center) x d`` (center kills the
-    catastrophic |o||d| magnitudes for off-origin scenes):
-
-      det   = e1.(d x e2) = d.(e2 x e1)
-      u_num = det[s,d,e2] = c.e2 + d.(v~0 x e2)
-      v_num = det[d,s,e1] = -c.e1 + d.(e1 x v~0)
-      t_num = s.n         = o.n - v0.n          (n = e1 x e2)
-
-    with ``s = o - v0`` and ``v~0 = v0 - center``.  One
-    [TILE,16]x[16, MXU_Q*BLOCK] matmul per sub-block then produces all
-    four [TILE,BLOCK] grids on the MXU, leaving only the reciprocal,
-    validity predicate and min-fold on the VPU.  The winning triangle
-    is re-evaluated differentiably by the caller, so kernel-form u/v
-    rounding only moves hit/miss decisions at triangle edges — the
-    same class of f32 error the elementwise form has, PROVIDED the
-    matmul itself is f32-class (Precision.HIGHEST; see the kernel).
-    Measured on v5e: correct but slower than the VPU form — the form
-    is kept for TPU generations with cheaper high-precision matmul
-    (PERF.md round-5 continuation has the pass-cost model).
-
-    Input: ``planes`` f32[nsb+1, 16, SB*BLOCK] (build_packet_set
-    layout).  Output: f32[nsb+1, 16, SB*MXU_Q*BLOCK]; for sub-block k
-    the lane groups are [det | u_num | v_num | t_num] of its BLOCK
-    slots.  Invalid / sentinel slots have all-zero columns -> det = 0
-    -> rejected by the epsilon predicate, so no valid row is needed.
-    """
-    nsbp, _, s = planes.shape
-
-    def vec(r0):
-        return jnp.stack([planes[:, r0], planes[:, r0 + 1],
-                          planes[:, r0 + 2]], axis=-1)   # [nsbp, S, 3]
-
-    v0 = vec(TC_V0X)
-    e1 = vec(TC_E1X)
-    e2 = vec(TC_E2X)
-    valid = (planes[:, TC_VALID] > 0.5)[..., None]       # [nsbp, S, 1]
-    n = jnp.cross(e1, e2)
-    vt = v0 - center[None, None, :]
-
-    def masked(x):
-        return jnp.where(valid, x, 0.0)
-
-    coef = jnp.zeros((nsbp, 16, MXU_Q, s), jnp.float32)
-
-    def put(rows, q, val):                               # val [nsbp,S,3]
-        return coef.at[:, rows:rows + val.shape[-1], q].set(
-            masked(val).transpose(0, 2, 1))
-
-    coef = put(RC_DX, 0, jnp.cross(e2, e1))              # det
-    coef = put(RC_CX, 1, e2)                             # u_num (c rows)
-    coef = put(RC_DX, 1, jnp.cross(vt, e2))              # u_num (d rows)
-    coef = put(RC_CX, 2, -e1)                            # v_num (c rows)
-    coef = put(RC_DX, 2, jnp.cross(e1, vt))              # v_num (d rows)
-    coef = put(RC_OX, 3, n)                              # t_num (o rows)
-    coef = put(RC_ONE, 3,
-               -jnp.sum(v0 * n, axis=-1, keepdims=True)) # t_num (const)
-
-    # regroup lanes per sub-block: [.., 16, Q, SB, BLOCK] ->
-    # [.., 16, SB, Q, BLOCK] so sub-block k's quantities are contiguous
-    coef = coef.reshape(nsbp, 16, MXU_Q, s // BLOCK, BLOCK)
-    coef = coef.transpose(0, 1, 3, 2, 4)
-    return coef.reshape(nsbp, 16, (s // BLOCK) * MXU_Q * BLOCK)
-
-
-def _sb_kernel_mxu(pps, pair_tile, pair_sb, pair_mask, first_step,
-                   ray_ref,                    # [TILE, 16]
-                   *refs):                     # pps coef refs, prior,
-                                               # out, run_tt, run_k
-    """MXU kernel form: one [TILE,16]x[16,MXU_Q*BLOCK] matmul per live
-    sub-block computes det/u/v/t; the VPU only runs the reciprocal,
-    the validity predicate and the deferred-argmin fold (~20 ops vs
-    the elementwise form's ~54).  Accumulation structure (deferred
-    argmin, tie-breaking, windows) is identical to _sb_kernel."""
-    tri_refs = refs[:pps]              # each [1, 16, SB*MXU_Q*BLOCK]
-    prior_ref, out_ref, run_tt, run_k = refs[pps:]
-    i = pl.program_id(0)
-
-    @pl.when(first_step[i] == 1)
-    def _init():
-        out_ref[:, :] = prior_ref[:, :]
-
-    run_tt[:, :] = jnp.full((TILE, BLOCK), INF_DIST, jnp.float32)
-    run_k[:, :] = jnp.zeros((TILE, BLOCK), jnp.float32)
-
-    any_mask = pair_mask[i * pps]
-    for j in range(1, pps):
-        any_mask = any_mask | pair_mask[i * pps + j]
-
-    rays = ray_ref[:, :]                                 # [TILE, 16]
-    for j in range(pps):
-        mask_j = pair_mask[i * pps + j]
-        for k in range(SB):
-            @pl.when((mask_j >> k) & 1 == 1)
-            def _mt(j=j, k=k):
-                b = tri_refs[j][0, :, k * MXU_Q * BLOCK:
-                                (k + 1) * MXU_Q * BLOCK]  # [16, Q*B]
-                # HIGHEST is REQUIRED: the MXU's default f32 path is
-                # single-pass bf16 (2^-8 relative rounding) — measured
-                # fatal for these cancellation-heavy determinant sums
-                # (hall image mean 0.296 -> 0.314, 10% of live lanes
-                # lost their hits).  HIGHEST (6-pass bf16 decomposition)
-                # reproduces the elementwise form to edge-only
-                # divergence.  See PERF.md round-5 continuation for why
-                # this form still loses to the VPU form on v5e.
-                prod = jax.lax.dot_general(
-                    rays, b, (((1,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                    precision=jax.lax.Precision.HIGHEST)  # [TILE, Q*B]
-                det = prod[:, 0 * BLOCK:1 * BLOCK]
-                un = prod[:, 1 * BLOCK:2 * BLOCK]
-                vn = prod[:, 2 * BLOCK:3 * BLOCK]
-                tn = prod[:, 3 * BLOCK:4 * BLOCK]
-
-                inv = 1.0 / jnp.where(jnp.abs(det) < _DET_EPS,
-                                      _DET_EPS, det)
-                uu = un * inv
-                vv = vn * inv
-                tt = tn * inv
-                ok = ((jnp.abs(det) >= _DET_EPS)
-                      & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
-                      & (tt > PZERO))
-                tt = jnp.where(ok, tt, INF_DIST)
-
-                better = tt < run_tt[:, :]
-                run_k[:, :] = jnp.where(better,
-                                        jnp.float32(j * SB + k),
-                                        run_k[:, :])
-                run_tt[:, :] = jnp.where(better, tt, run_tt[:, :])
-
-    @pl.when(any_mask != 0)
-    def _merge():
-        rt = run_tt[:, :]
-        best = out_ref[:, OC_T]
-        slot_best = jax.lax.bitcast_convert_type(
-            out_ref[:, OC_SLOT], jnp.int32)
-
-        j = jnp.argmin(rt, axis=1)                         # [TILE]
-        tj = jnp.min(rt, axis=1)
-        better = tj < best
-
-        onehot = (jax.lax.broadcasted_iota(jnp.int32, (TILE, BLOCK), 1)
-                  == j[:, None])
-        kj = jnp.sum(jnp.where(onehot, run_k[:, :], 0.0),
-                     axis=1).astype(jnp.int32)             # [TILE]
-
-        jj = kj // SB
-        kk = kj - jj * SB
-        base = jnp.zeros_like(kj)
-        for jx in range(pps):
-            base = jnp.where(jj == jx,
-                             pair_sb[i * pps + jx] * (SB * BLOCK), base)
-
-        best = jnp.where(better, tj, best)
-        slot_best = jnp.where(better,
-                              base + kk * BLOCK + j,
-                              slot_best)
-
-        colid = jax.lax.broadcasted_iota(jnp.int32, (TILE, 8), 1)
-        out = jnp.where(colid == OC_T, best[:, None],
-                        out_ref[:, :])
-        out = jnp.where(
-            colid == OC_SLOT,
-            jax.lax.bitcast_convert_type(
-                slot_best, jnp.float32)[:, None],
-            out)
-        out_ref[:, :] = out
-
-
-@partial(jax.jit,
-         static_argnames=("window", "pairs_per_step", "kernel_form"))
-def pallas_sb_intersect_windowed(
-    pair_tile,               # i32[L] pair list, tile-major; pad -> nt
-    pair_sb,                 # i32[L] superblock ids (pad -> sentinel)
-    pair_mask,               # i32[L] 8-bit per-block masks (pad -> 0)
-    n_real: jax.Array,       # i32[] number of real pairs
-    rays,                    # f32[(nt+1)*TILE, 16]
-    planes,                  # f32[nsb+1, 16, SB*BLOCK] (last = sentinel)
-    window: int = 1024,
-    prior=None,              # f32[(nt+1)*TILE, 8] carried bests (round 2+)
-    pairs_per_step: int = 1,
-    kernel_form: str = "mt",
-):
-    """Exact pair execution: while_loop over fixed-size pair windows.
-
-    Each window runs one ``pallas_call`` whose BlockSpec index maps pull
-    the superblock planes straight out of HBM (contiguous DMAs,
-    double-buffered by Mosaic); per-tile bests carry across windows via
-    the prior-input/first-flag handoff, and tiles untouched in a window
-    keep their carried values through the output aliasing.  ``prior``
-    seeds the accumulator from an earlier round's result instead of the
-    t_cap/-1 initialization (the multi-round front-to-back query).
-
-    ``pairs_per_step`` > 1 executes that many consecutive pairs per
-    grid step (separate double-buffered plane inputs), amortizing the
-    fixed per-step cost (measured 0.3-0.56 us/pair in round 3 — about
-    a third of coherent kernel time).  REQUIRES the pair list to be
-    tile-aligned: every aligned group of ``pairs_per_step`` pairs
-    shares one tile (packet.py compacts with ``align=`` padding).
-    """
-    pps = pairs_per_step
-    assert window % pps == 0
-    assert kernel_form in ("mt", "mt2", "mxu")
-    n_rows = rays.shape[0]
-    n_tiles_pad = n_rows // TILE - 1
-    # the mxu form consumes the wider determinant-coefficient planes
-    plane_w = SB * (MXU_Q if kernel_form == "mxu" else 1) * BLOCK
-    kernel = {"mt": _sb_kernel, "mt2": _sb_kernel_mt2,
-              "mxu": _sb_kernel_mxu}[kernel_form]
-    assert planes.shape[2] == plane_w, \
-        f"planes lane width {planes.shape[2]} != {plane_w} for " \
-        f"kernel_form={kernel_form!r}"
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=4,
-        grid=(window // pps,),
-        in_specs=[
-            pl.BlockSpec((TILE, RAY_COLS),
-                         lambda i, pt, psb, pm, fp: (pt[i * pps], 0),
-                         memory_space=pltpu.VMEM),
-        ] + [
-            pl.BlockSpec((1, 16, plane_w),
-                         (lambda j: lambda i, pt, psb, pm, fp:
-                          (psb[i * pps + j], 0, 0))(j),
-                         memory_space=pltpu.VMEM)
-            for j in range(pps)
-        ] + [
-            pl.BlockSpec((TILE, 8),
-                         lambda i, pt, psb, pm, fp: (pt[i * pps], 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(
-            (TILE, 8),
-            lambda i, pt, psb, pm, fp: (pt[i * pps], 0),
-            memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((TILE, BLOCK), jnp.float32),   # run_tt
-            pltpu.VMEM((TILE, BLOCK), jnp.float32),   # run_k
-        ],
-    )
-
-    # CPU (tests / virtual mesh) has no Mosaic — fall back to the
-    # interpreter there; real TPU compiles the kernel.
+
+#: Triton block configuration of ``pallas_execute_pairs`` on the GPU:
+#: rays per program, triangles per inner chunk, warps per program.
+#: Tuned on an H100 at the bench's hall pair lists (PERF.md): the ~20
+#: live [rb, tc] Möller–Trumbore intermediates must stay in registers.
+GPU_BLOCKS = dict(rb=32, tc=32, num_warps=4)
+#: interpret mode (CPU) runs one program per tile and whole sub-blocks
+#: per step: the interpreter's cost is per loop iteration, not per lane
+_INTERPRET_BLOCKS = dict(rb=TILE, tc=BLOCK, num_warps=4)
+
+
+def _mt_grid(ox, oy, oz, dx, dy, dz, row):
+    """Masked-hit distances of rays ``o``/``d`` (broadcastable columns)
+    against triangle rows ``row(c)``: t where the hit is valid and
+    beyond PZERO, INF_DIST elsewhere."""
+    e1x, e1y, e1z = row(TC_E1X), row(TC_E1Y), row(TC_E1Z)
+    e2x, e2y, e2z = row(TC_E2X), row(TC_E2Y), row(TC_E2Z)
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    inv = 1.0 / jnp.where(jnp.abs(det) < _DET_EPS, _DET_EPS, det)
+    sx = ox - row(TC_V0X)
+    sy = oy - row(TC_V0Y)
+    sz = oz - row(TC_V0Z)
+    uu = (sx * px + sy * py + sz * pz) * inv
+    qx = sy * e1z - sz * e1y
+    qy = sz * e1x - sx * e1z
+    qz = sx * e1y - sy * e1x
+    vv = (dx * qx + dy * qy + dz * qz) * inv
+    tt = (e2x * qx + e2y * qy + e2z * qz) * inv
+    ok = ((jnp.abs(det) >= _DET_EPS)
+          & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
+          & (tt > PZERO) & (row(TC_VALID) > 0.5))
+    return jnp.where(ok, tt, INF_DIST)
+
+
+def _fold(bt, bs, t, s):
+    """Lexicographic (t, slot) minimum: lower t wins, lower slot on a
+    tie."""
+    better = (t < bt) | ((t == bt) & (s < bs))
+    return jnp.where(better, t, bt), jnp.where(better, s, bs)
+
+
+def tile_offsets(pair_tile, n_real, n_tiles: int):
+    """Per-tile ``[start, end)`` ranges into a tile-major pair list.
+
+    ``pair_tile`` i32[L] is non-decreasing over its first ``n_real``
+    entries; entries past ``n_real`` are padding.  Returns (start, end),
+    each i32[n_tiles]; a tile with no pair gets start == end."""
+    lw = pair_tile.shape[0]
+    idx = jnp.arange(lw, dtype=jnp.int32)
+    pt = jnp.where(idx < n_real, pair_tile, n_tiles)
+    bounds = jnp.searchsorted(
+        pt, jnp.arange(n_tiles + 1, dtype=jnp.int32),
+        side="left").astype(jnp.int32)
+    return bounds[:-1], jnp.minimum(bounds[1:], n_real)
+
+
+def _pair_kernel(rb, tc, start_ref, end_ref, psb_ref, pm_ref,
+                 ray_ref, planes_ref, pt_ref, ps_ref, t_ref, s_ref):
+    progs_per_tile = TILE // rb
+    tile = pl.program_id(0) // progs_per_tile
+
+    def col(c):
+        return ray_ref[:, c][:, None]                  # [rb, 1]
+
+    ox, oy, oz = col(RC_OX), col(RC_OY), col(RC_OZ)
+    dx, dy, dz = col(RC_DX), col(RC_DY), col(RC_DZ)
+    lane = jax.lax.broadcasted_iota(jnp.int32, (rb, tc), 1)
+
+    def chunk(sb, off, carry):
+        def row(c):
+            return planes_ref[sb, c, pl.ds(off, tc)][None, :]   # [1, tc]
+
+        tt = _mt_grid(ox, oy, oz, dx, dy, dz, row)      # [rb, tc]
+        tmin = jnp.min(tt, axis=1)
+        j = jnp.min(jnp.where(tt == tmin[:, None], lane, _NO_SLOT),
+                    axis=1)
+        return _fold(*carry, tmin, sb * (SB * BLOCK) + off + j)
+
+    def pair(p, carry):
+        sb = psb_ref[p]
+        mask = pm_ref[p]
+
+        def sub_block(k, carry):
+            def run(carry):
+                return jax.lax.fori_loop(
+                    0, BLOCK // tc,
+                    lambda q, c: chunk(sb, k * BLOCK + q * tc, c), carry)
+
+            return jax.lax.cond(((mask >> k) & 1) == 1, run,
+                                lambda c: c, carry)
+
+        return jax.lax.fori_loop(0, SB, sub_block, carry)
+
+    bt, bs = jax.lax.fori_loop(start_ref[tile], end_ref[tile], pair,
+                               (pt_ref[...], ps_ref[...]))
+    t_ref[...] = bt
+    s_ref[...] = bs
+
+
+def _prior(rays, prior):
+    """(t, slot) the execution starts from: the caller's prior, or the
+    ray caps with no hit."""
+    if prior is not None:
+        return prior
+    return (rays[:, RC_TCAP],
+            jnp.full((rays.shape[0],), -1, jnp.int32))
+
+
+@partial(jax.jit, static_argnames=("rb", "tc"))
+def pallas_execute_pairs(pair_tile, pair_sb, pair_mask, n_real, rays,
+                         planes, prior=None, *, rb: int | None = None,
+                         tc: int | None = None):
+    """Closest hit per ray over a tile-major pair list (Triton kernel).
+
+    pair_tile/pair_sb/pair_mask i32[L] (tile-major over the first
+    ``n_real`` entries), rays f32[(nt+1)*TILE, RAY_COLS], planes
+    f32[nsb+1, 16, SB*BLOCK]; ``prior`` (t, slot) seeds the result (a
+    later round of a multi-round query), else (t_cap, -1).  Returns
+    (t f32[rows], slot i32[rows]).  ``rb``/``tc`` override the
+    backend's rays per program and triangles per chunk (tests)."""
     interpret = jax.default_backend() == "cpu"
-    call = pl.pallas_call(
-        partial(kernel, pps),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((n_rows, 8), jnp.float32),
-        # prior (input 5+pps = 4 scalar-prefetch + rays + pps planes +
-        # prior) aliases the output: tiles untouched by a window keep
-        # their carried values in place, so the driver needs no merge.
-        input_output_aliases={5 + pps: 0},
+    blocks = _INTERPRET_BLOCKS if interpret else GPU_BLOCKS
+    rb = blocks["rb"] if rb is None else rb
+    tc = blocks["tc"] if tc is None else tc
+    assert TILE % rb == 0 and BLOCK % tc == 0, (rb, tc)
+    n_rows = rays.shape[0]
+    n_tiles = n_rows // TILE
+    start, end = tile_offsets(pair_tile, n_real, n_tiles)
+    prior_t, prior_s = _prior(rays, prior)
+
+    def whole(x):
+        return pl.BlockSpec(x.shape, lambda i: (0,) * x.ndim)
+
+    rows = pl.BlockSpec((rb,), lambda i: (i,))
+    return pl.pallas_call(
+        partial(_pair_kernel, rb, tc),
+        grid=(n_rows // rb,),
+        in_specs=[whole(start), whole(end), whole(pair_sb),
+                  whole(pair_mask),
+                  pl.BlockSpec((rb, RAY_COLS), lambda i: (i, 0)),
+                  whole(planes), rows, rows],
+        out_specs=[rows, rows],
+        out_shape=[jax.ShapeDtypeStruct((n_rows,), jnp.float32),
+                   jax.ShapeDtypeStruct((n_rows,), jnp.int32)],
+        backend="triton",
+        compiler_params=pltr.CompilerParams(
+            num_warps=blocks["num_warps"], num_stages=1),
         interpret=interpret,
-    )
+        name="sb_pair_intersect",
+    )(start, end, pair_sb, pair_mask, rays, planes, prior_t, prior_s)
 
-    if prior is None:
-        # initial best: t = t_cap (ray column 6), slot = -1
-        colid = jnp.arange(8)[None, :]
-        neg1 = jax.lax.bitcast_convert_type(
-            jnp.full((n_rows,), -1, jnp.int32), jnp.float32)
-        init_out = jnp.where(
-            colid == OC_T, rays[:, RC_TCAP][:, None],
-            jnp.where(colid == OC_SLOT, neg1[:, None], 0.0))
-    else:
-        init_out = prior
 
-    def cond(state):
-        # NOTE: deliberately no any-hit early-exit here — reading the
-        # aliased ``out`` in the loop condition forces XLA to copy the
-        # whole accumulator every window (~30 MB at 720p; measured 2x
-        # slower shadow queries than closest-hit ones).
-        start, _ = state
-        return start < n_real
+def _argmin_tie_low(a, b):
+    (ta, ia), (tb, ib) = a, b
+    take_b = (tb < ta) | ((tb == ta) & (ib < ia))
+    return jnp.where(take_b, tb, ta), jnp.where(take_b, ib, ia)
+
+
+@partial(jax.jit, static_argnames=("window",))
+def xla_execute_pairs(pair_tile, pair_sb, pair_mask, n_real, rays,
+                      planes, prior=None, *, window: int = 1024):
+    """Plain-XLA executor with the contract of ``pallas_execute_pairs``.
+
+    Per window of ``window`` pairs: gather the pairs' ray tiles and
+    superblock planes, reduce the [window, TILE, SB*BLOCK] masked
+    Möller–Trumbore grid to one (t, slot) candidate per (pair, ray)
+    with a lowest-slot argmin, and merge into the per-ray result with
+    two scatter-mins (t, then slot among the rays' equal-t
+    candidates)."""
+    n_rows = rays.shape[0]
+    nt = n_rows // TILE - 1
+    nsb = planes.shape[0] - 1
+    lw = pair_tile.shape[0]
+    wpad = (-lw) % window
+    if wpad:
+        pair_tile = jnp.concatenate(
+            [pair_tile, jnp.full((wpad,), nt, jnp.int32)])
+        pair_sb = jnp.concatenate(
+            [pair_sb, jnp.full((wpad,), nsb, jnp.int32)])
+        pair_mask = jnp.concatenate(
+            [pair_mask, jnp.zeros((wpad,), jnp.int32)])
+    rays_t = rays.reshape(nt + 1, TILE, RAY_COLS)
+    w = SB * BLOCK
+    lane = jnp.arange(w, dtype=jnp.int32)
+    lane_bit = (lane // BLOCK)[None, None, :]
 
     def body(state):
-        start, out = state
-        pt = jax.lax.dynamic_slice(pair_tile, (start,), (window,))
+        start, bt, bs = state
+        idx = start + jnp.arange(window, dtype=jnp.int32)
+        live = idx < n_real
+        pt = jnp.where(live, jax.lax.dynamic_slice(
+            pair_tile, (start,), (window,)), nt)
         psb = jax.lax.dynamic_slice(pair_sb, (start,), (window,))
-        pm = jax.lax.dynamic_slice(pair_mask, (start,), (window,))
-        live = (start + jnp.arange(window, dtype=jnp.int32)) < n_real
-        pt = jnp.where(live, pt, n_tiles_pad)
-        pm = jnp.where(live, pm, 0)
-        pt_s = pt[::pps]                 # tile of each STEP
-        fp = jnp.concatenate([
-            jnp.ones((1,), jnp.int32),
-            (pt_s[1:] != pt_s[:-1]).astype(jnp.int32)])
-        # the same planes array feeds every per-pair input slot; only
-        # the index maps differ
-        out = call(pt, psb, pm, fp, rays, *([planes] * pps), out)
-        return start + window, out
+        pm = jnp.where(live, jax.lax.dynamic_slice(
+            pair_mask, (start,), (window,)), 0)
+        r = rays_t[pt]                                   # [W, TILE, C]
+        tri = planes[psb]                                # [W, 16, w]
 
-    _, out = jax.lax.while_loop(cond, body, (jnp.int32(0), init_out))
-    return out
+        def col(c):
+            return r[:, :, c][:, :, None]                # [W, TILE, 1]
+
+        def row(c):
+            return tri[:, c, :][:, None, :]              # [W, 1, w]
+
+        tt = _mt_grid(col(RC_OX), col(RC_OY), col(RC_OZ),
+                      col(RC_DX), col(RC_DY), col(RC_DZ), row)
+        on = ((pm[:, None, None] >> lane_bit) & 1) == 1
+        tt = jnp.where(on, tt, INF_DIST)
+        tmin, j = jax.lax.reduce(
+            (tt, jnp.broadcast_to(lane, tt.shape)),
+            (jnp.float32(INF_DIST), jnp.int32(_NO_SLOT)),
+            _argmin_tie_low, (2,))                       # [W, TILE]
+        cand = psb[:, None] * w + j
+        rows = (pt[:, None] * TILE
+                + jnp.arange(TILE, dtype=jnp.int32)[None, :]).reshape(-1)
+        tmin = tmin.reshape(-1)
+        cand = cand.reshape(-1)
+        bt2 = bt.at[rows].min(tmin)
+        keep = jnp.where(bt == bt2, bs, _NO_SLOT)
+        bs2 = keep.at[rows].min(jnp.where(tmin == bt2[rows], cand,
+                                          _NO_SLOT))
+        return start + window, bt2, bs2
+
+    bt, bs = _prior(rays, prior)
+    _, bt, bs = jax.lax.while_loop(lambda s: s[0] < n_real, body,
+                                   (jnp.int32(0), bt, bs))
+    return bt, bs

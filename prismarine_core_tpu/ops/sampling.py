@@ -4,7 +4,7 @@ Replaces the reference's hash-RNG (``ShadersSDK/include/random.glsl``) with
 the idiomatic JAX design: *explicit* uniform sample arrays generated once
 per frame from a threefry key.  The integrator is a deterministic function
 ``render(scene, rays, samples)`` — the same sample arrays drive both the
-TPU path and the numpy oracle, so correctness tests compare images
+JAX path and the numpy oracle, so correctness tests compare images
 sample-for-sample instead of only statistically.
 
 Sample slot layout, consumed per bounce (see render/integrator.py):

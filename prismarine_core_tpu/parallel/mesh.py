@@ -7,11 +7,11 @@ insert collectives):
 
 * mesh axes ``('data', 'model')``: ``data`` shards rays/pixels (pure DP —
   every ray is independent), ``model`` shards triangle ranges (the
-  model-parallel analog for scenes larger than one chip's HBM).
+  model-parallel analog for scenes larger than one device's memory).
 * GSPMD/pjit does the partitioning: the brute-force intersector's
   [R, T] block computation splits over both axes and the closest-hit
   min-reduce over T becomes a cross-``model`` collective; per-pixel
-  radiance and parameter gradients all-reduce over ICI automatically
+  radiance and parameter gradients all-reduce across devices automatically
   under `jax.grad`.
 * the BVH path gathers from its node arrays, which would turn into
   collective gathers if sharded — so BVH arrays stay replicated

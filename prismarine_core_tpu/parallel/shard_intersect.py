@@ -1,12 +1,11 @@
-"""Model-parallel intersection: shard the REAL (Pallas packet) intersector.
+"""Model-parallel intersection: shard the production (packet) intersector.
 
-The r1 build could only shard the toy brute-force path; this module
-shards the production intersector's *block ranges* over the mesh's
+This module shards the production intersector's *block ranges* over the mesh's
 ``model`` axis (SURVEY.md §7 stage 7, option (b)): each model shard owns
 a contiguous superblock range of the Morton-sorted triangle slots —
 planes, block/superblock AABBs and slot->triangle ids all split on their
 leading axis — runs the full local query (dense superblock cull, pair
-compaction, block masks, Pallas kernel), and the per-ray closest hits
+compaction, block masks, pair kernel), and the per-ray closest hits
 min-reduce across ``model`` with one ``all_gather`` (rays stay sharded
 over ``data``).  The reference has no distributed capability at all
 (SURVEY.md §2: single GL context); the closest analog being replaced is
@@ -29,6 +28,7 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from prismarine_core_tpu.accel.lbvh import BVH, EMPTY_BOX
@@ -36,11 +36,6 @@ from prismarine_core_tpu.accel.packet import (
     SB, PacketSet, _run_packet_pallas, build_packet_set)
 from prismarine_core_tpu.ops.intersect import Hit, moller_trumbore
 from prismarine_core_tpu.utils.config import INF_DIST
-
-try:  # jax >= 0.4.35 exposes it at the top level
-    from jax import shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
 
 
 @jax.tree_util.register_dataclass
@@ -192,8 +187,8 @@ def _local_query(sp_local: ShardedPackets, o, d, t_cap, any_hit: bool,
     Returns (t_key, t, u, v, tri): ``t_key`` is the detached kernel
     distance (the reduce key); t/u/v re-evaluate the winning slot
     against the shard's LOCAL vertex arrays, differentiably — no
-    replicated soup anywhere.  ``query_kw``: the single-chip
-    production knobs (cull_impl / pairs_per_step / strategies...),
+    replicated soup anywhere.  ``query_kw``: the single-device
+    production knobs (cull_impl / strategies / sort mode...),
     forwarded verbatim to ``_run_packet_pallas`` — the sharded path
     runs the SAME tuned pipeline per shard.
     """
@@ -398,7 +393,7 @@ def sharded_intersect_closest(mesh: Mesh, sp: ShardedPackets, o, d,
     fields dict (ns/ng/tang/uv/mat_id) for replicated-soup-free
     shading.  ``return_order``: also return the per-shard coherence
     permutation for reuse by this bounce's shadow query.
-    ``query_kw``: single-chip production knobs forwarded to each
+    ``query_kw``: single-device production knobs forwarded to each
     shard's `_run_packet_pallas` (the integrator passes
     `_pallas_kwargs(cfg)`)."""
     if t_cap is None:

@@ -8,7 +8,7 @@ star of BASELINE.json ("reparameterized/edge-aware gradients",
 SURVEY.md §7 hard-part 3; the CUDA/GLSL reference has no differentiable
 rendering at all, so there is no reference file to cite for parity).
 
-Method (edge sampling, re-derived TPU-first):
+Method (edge sampling, re-derived for dense array programs):
 
   dI_j/dtheta = interior (autodiff through detached visibility)
               + sum_edges  INT_edge (L^- - L^+) (n_perp . dm/dtheta) dl
@@ -16,7 +16,8 @@ Method (edge sampling, re-derived TPU-first):
 where the integral runs over the *screen-space projection* of every
 triangle edge, ``m`` is the (differentiable) screen position of an edge
 point, ``n_perp`` a unit normal of the projected edge, and ``L^+/-`` the
-radiance just off either side.  Three TPU-friendly design choices:
+radiance just off either side.  Three design choices that keep it
+dense and fixed-shape:
 
 1. **No silhouette detection.**  All ``3T`` soup edges are candidates;
    for interior (shared, front-facing) or fully-occluded edges the two

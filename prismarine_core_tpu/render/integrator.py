@@ -3,8 +3,8 @@
 This one module replaces the reference's whole wavefront kernel pipeline —
 camera.comp, directTraverse.comp, surface.comp, rayshading.comp and the
 ray-pool/counter machinery (``rayslib.glsl``, ``Pipeline.inl:325-359``).
-On TPU there are no atomics and no dynamic queues: every ray occupies a
-fixed lane for the full bounce budget; dead lanes are masked.  Radiance is
+There are no atomics and no dynamic queues: every ray occupies a fixed
+lane for the full bounce budget; dead lanes are masked.  Radiance is
 accumulated per-lane and reduced to pixels by a reshape-mean (the analog of
 sampler.comp's color-chain walk, without linked lists).
 
@@ -49,12 +49,7 @@ def _pallas_kwargs(cfg: RenderConfig, any_hit: bool) -> dict:
     kw = dict(cull_impl=cull, sort_mode=cfg.sort_mode,
               recull=cfg.recull,
               stale_round_masks=cfg.stale_round_masks,
-              pairs_per_step=cfg.pairs_per_step,
-              near_frac=cfg.near_frac,
-              window=cfg.kernel_window,
-              cull_window=cfg.cull_window,
-              cull_pps=cfg.cull_pps,
-              kernel_form=cfg.kernel_form)
+              near_frac=cfg.near_frac)
     strat = cfg.anyhit_strategy if any_hit else cfg.closest_strategy
     k = cfg.anyhit_k if any_hit else cfg.closest_k
     if strat:
@@ -199,11 +194,9 @@ def _interpolate_surface(scene: Scene, hit: Hit, d,
         uu = hit.u[:, None]
         vv = hit.v[:, None]
 
-        # NOTE: separate per-field gathers beat a packed [T, 31]
-        # attribute-matrix row gather here (measured +30 ms/frame for
-        # the packed form: a sub-128 minor dim degrades every slice op,
-        # and XLA already fuses these gathers well — unlike the kernel
-        # ray matrix, whose consumer is a contiguous DMA)
+        # separate per-field gathers (XLA fuses them well; a packed
+        # [T, 31] attribute-matrix row gather was slower on an earlier
+        # device and has not been re-measured on the GPU)
         ns = pm.normalize(w * soup.n0[tri] + uu * soup.n1[tri]
                           + vv * soup.n2[tri])
         ng = pm.normalize(jnp.cross(soup.v1[tri] - soup.v0[tri],
@@ -223,8 +216,7 @@ def _interpolate_surface(scene: Scene, hit: Hit, d,
         # STATIC per-kind binding flags: a kind no material binds skips
         # its whole fetch+filter chain at trace time (texture ids are
         # traced arrays, so without this every chain's gathers execute
-        # and get discarded by the blend `where` — measured ~20 ms per
-        # [R]-row gather per bounce)
+        # and get discarded by the blend `where`)
         kb = getattr(scene.materials, "kinds_bound", (True,) * 4)
         if stub:
             # uv and the tangent frame only feed texture fetches —

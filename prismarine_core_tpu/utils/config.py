@@ -90,7 +90,7 @@ class RenderConfig:
     samples_lock: int = 0
     #: coherent path tracing (Sadeghi et al. 2009): correlate bounce
     #: samples across 8x16-pixel screen blocks so secondary rays form
-    #: direction-tight packets (large speedup on the packet/pallas
+    #: direction-tight packets (fewer culled pairs on the packet/pallas
     #: intersectors).  Unbiased per pixel; adds intra-frame cross-pixel
     #: correlation that the progressive accumulator averages out.
     coherent_bounce_sampling: bool = False
@@ -101,53 +101,27 @@ class RenderConfig:
     #: coherent_bounce_sampling (directions/coins stay block-coherent).
     reuse_bounce_order: bool = False
     #: sort rays by direction octant + origin morton before traversal
-    #: (the TPU analog of the reference's wavefront compaction /
-    #: optional ray sorting, Pipeline.hpp:101) — coherent chunks
-    #: retire together.
+    #: (the analog of the reference's wavefront compaction / optional
+    #: ray sorting, Pipeline.hpp:101) — coherent chunks retire
+    #: together.
     sort_rays: bool = False
-    #: dense-cull implementation for the pallas intersector:
-    #: "pallas2" = TWO-LEVEL cull (round 5): dense slab kernel at
-    #: SUPERBLOCK granularity (1/8 the work of "pallas") + a
-    #: pair-driven block-refine kernel over the compacted survivors,
-    #: so block-level cull work scales with the candidate count
-    #: instead of O(rays x blocks); "pallas" = round-4 block-granular
-    #: dense cull kernel (ops/pallas_cull.py); "xla" = the round-3
-    #: two-stage fallback (superblock scan + windowed mask refinement).
+    #: dense-cull scheme of the pallas intersector (accel/packet.py,
+    #: ops/cull.py): "pallas" = one-level dense slab cull at BLOCK
+    #: granularity, from which candidates and per-pair block masks
+    #: derive; "pallas2" = two-level cull — dense at SUPERBLOCK
+    #: granularity, then a pair-driven block refine over the compacted
+    #: survivors, so block-level cull work scales with the candidate
+    #: count; "xla" = the same two-level cull (the names predate the
+    #: plain-XLA culls and are kept for now).
     cull_impl: str = "pallas"
-    #: pair window of the two-level cull's refine kernel (pairs per
-    #: pallas_call in its while_loop)
-    cull_window: int = 4096
-    #: pair-cull alignment override for the two-level cull (0 = auto:
-    #: 16 when pairs_per_step == 16, else 8).  16 fills all 128 refine-
-    #: kernel lanes (16 pairs x 8 blocks per step) at the price of more
-    #: tile-run padding in the MT windows; pairs_per_step must divide.
-    cull_pps: int = 0
-    #: Moller-Trumbore kernel form of the fused Pallas intersector:
-    #: "mt" = elementwise VPU form (2 crosses + 4 dots per sub-block);
-    #: "mxu" = determinant form — every numerator is linear in the ray
-    #: features [o, d, 1, (o-center) x d], so ONE
-    #: [128,16]x[16,4*128] MXU matmul per sub-block produces
-    #: det/u/v/t and the VPU only runs reciprocal + predicate + fold
-    #: (ops/pallas_intersect.py:mxu_planes_from_planes).  Measured a
-    #: LOSS on v5e (PERF.md round-5 continuation): the determinant
-    #: sums need f32-class matmul precision, which the v5e MXU only
-    #: reaches via the 6-pass bf16 decomposition with K padded 16->128
-    #: — kept as a knob for TPU generations with native f32 matmul.
-    #: "mt2" = two-sub-block-interleaved elementwise form (ILP probe;
-    #: bit-identical, measured +8% — the kernel is throughput-bound).
-    kernel_form: str = "mt"
-    #: cull_impl override for ANY-HIT queries ("" = same as cull_impl).
-    #: A/B knob: standalone full-live any-hit probes favored the r4
-    #: cull, but IN-FRAME shadow queries (order-reusing, mostly dead)
-    #: favor pallas2, and carrying both pipelines measured a LOSS
-    #: (PERF r5 item 10) — production keeps one impl for both.
+    #: cull_impl override for ANY-HIT queries ("" = same as cull_impl)
     anyhit_cull_impl: str = ""
     #: skip the coherence sort for PRIMARY (bounce-0) rays: camera rays
-    #: arrive in scanline order, which is already tile-coherent, so the
-    #: identity order saves the u32 key sort + the 64-byte-row gather
-    #: once per frame (pallas intersector only).  Measured r5: a LOSS —
-    #: scanline tiles are 128x1 strips whose frusta overlap far more
-    #: superblocks than Morton-sorted tiles.  See primary_tile_order.
+    #: arrive in scanline order, so the identity order saves the u32
+    #: key sort + the 64-byte-row gather once per frame (pallas
+    #: intersector only).  Scanline tiles are 128x1 strips whose frusta
+    #: overlap more superblocks than Morton-sorted tiles; see
+    #: primary_tile_order.
     primary_identity: bool = False
     #: generate PRIMARY rays directly in 16x8-PIXEL-TILE order (lane
     #: tile = a compact screen rect instead of a 128x1 scanline strip)
@@ -158,38 +132,29 @@ class RenderConfig:
     #: pallas intersector only.
     primary_tile_order: bool = False
     #: ray coherence sort variant (accel/packet.py:_sort_pad_rays):
-    #: "full" (2-array u32 sort, round-3 default), "packed" (1-array
-    #: sort, index packed into the key's low bits), "group" (sort
-    #: 16-ray groups by live-centroid key — 16x fewer sort elements).
+    #: "full" (2-array u32 sort), "packed" (1-array sort, index packed
+    #: into the key's low bits), "group" (sort 16-ray groups by
+    #: live-centroid key — 16x fewer sort elements).
     sort_mode: str = "full"
-    #: two_round round-2 pruning on the pallas-cull path: "sb" (per-ray
-    #: superblock recull + round-1 block masks, measured fastest),
-    #: "kernel" (re-run the cull kernel with tightened per-ray caps),
-    #: "tn" (per-tile caps over saved block distances — cheap but
-    #: re-admits whole tiles; measured 6x slower, reference only).
+    #: two_round round-2 pruning under the one-level cull: "sb" (per-ray
+    #: superblock recull + round-1 block masks), "kernel" (re-run the
+    #: block cull with tightened per-ray caps), "tn" (per-tile caps
+    #: over saved block distances — cheap but re-admits whole tiles).
     #: Results identical in all modes.
     recull: str = "sb"
     #: "rounds" strategy: keep round-0 block masks instead of
     #: re-deriving them per round against tightened per-ray caps
-    #: (True wins when queries finish in a round or two — coherent;
-    #: False measured far better for incoherent any-hit)
+    #: (cheaper when queries finish in a round or two — coherent;
+    #: fresh masks prune far more for incoherent any-hit)
     stale_round_masks: bool = False
     #: two_round round-1 selection: 0 = K-nearest top_k; > 0 = run all
     #: candidates within this fraction of the tile's entry-distance
-    #: range first (two cheap row reduces instead of a ~41 ms
-    #: [nt, nsb] top_k; adaptive per-tile round sizes)
+    #: range first (two row reduces instead of a [nt, nsb] top_k;
+    #: adaptive per-tile round sizes)
     near_frac: float = 0.0
-    #: fused-kernel pair-window length (pairs per pallas_call in the
-    #: while_loop; cost adapts to the scene via the loop trip count)
-    kernel_window: int = 1024
-    #: consecutive same-tile pairs executed per kernel grid step
-    #: (pallas-cull path only): amortizes the fixed per-step cost
-    #: (0.3-0.56 us/pair measured r3) at the price of tile-aligned
-    #: pair-list padding and a bigger kernel body.
-    pairs_per_step: int = 1
     #: execution-strategy overrides for the pallas intersector
-    #: ("" / 0 = the measured defaults: closest -> two_round K=8,
-    #: any-hit -> rounds K=8; see _run_packet_pallas)
+    #: ("" / 0 = the defaults: closest -> two_round K=8, any-hit ->
+    #: rounds K=8; see _run_packet_pallas)
     closest_strategy: str = ""
     closest_k: int = 0
     anyhit_strategy: str = ""

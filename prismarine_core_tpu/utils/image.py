@@ -8,6 +8,9 @@ radiance dump), self-contained writer.
 
 from __future__ import annotations
 
+import struct
+import zlib
+
 import numpy as np
 
 
@@ -21,8 +24,35 @@ def tonemap(img: np.ndarray, exposure: float = 1.0,
 
 
 def save_png(path: str, img: np.ndarray, exposure: float = 1.0) -> None:
-    from PIL import Image
-    Image.fromarray(tonemap(img, exposure)).save(path)
+    """Tonemapped 8-bit RGB PNG, written with zlib (no image library)."""
+    px = tonemap(img, exposure)
+    h, w, _ = px.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8),      # filter: none
+                          px.reshape(h, w * 3)], axis=1).tobytes()
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
+        f.write(chunk(b"IEND", b""))
+
+
+def load_image_rgba(source) -> np.ndarray:
+    """Decode an image file (path or file-like) to f32[H, W, 4] in
+    [0, 1].  Decoding needs Pillow, which is optional: without it this
+    raises an ImportError that names the package."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            "decoding image textures needs the 'Pillow' package "
+            "(import PIL); install it or use untextured scenes") from e
+    return np.asarray(Image.open(source).convert("RGBA"),
+                      np.float32) / 255.0
 
 
 def save_hdr(path: str, img: np.ndarray) -> None:

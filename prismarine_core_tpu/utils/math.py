@@ -1,6 +1,6 @@
 """Small vector-math helpers used across the JAX compute path.
 
-TPU-native analog of the reference's GLSL math library
+Analog of the reference's GLSL math library
 (``ShadersSDK/include/mathlib.glsl``): everything operates on batched
 ``[..., 3]`` arrays, is branch-free, and is safe under jit/vmap/grad.
 """

@@ -3,7 +3,7 @@
 agree on the result.
 
 This validates the exact wiring `__graft_entry__.dryrun_multihost` uses
-on a real pod slice (coordinator env -> jax.distributed.initialize ->
+on real hosts (coordinator env -> jax.distributed.initialize ->
 global mesh -> GSPMD collectives across processes); locally the
 collectives ride gloo over localhost.
 """

@@ -11,7 +11,7 @@ from prismarine_core_tpu.accel.packet import (
 from prismarine_core_tpu.models.procedural import make_hall_scene
 from prismarine_core_tpu.ops.intersect import (
     intersect_closest_brute, occluded_brute)
-from tests.test_bvh import _random_soup
+from test_bvh import _random_soup
 
 
 def _rand_rays(r, seed=0, lo=-8, hi=8):
@@ -151,19 +151,17 @@ def test_reuse_bounce_order_matches():
     dict(cull_impl="pallas", strategy="rounds", k_round=4),
     dict(cull_impl="xla", strategy="rounds", k_round=4),
     dict(cull_impl="pallas2"),
-    dict(cull_impl="pallas2", pairs_per_step=8),
-    dict(cull_impl="pallas2", strategy="single", pairs_per_step=4),
+    dict(cull_impl="pallas2", strategy="single"),
     dict(cull_impl="pallas2", strategy="rounds", k_round=4),
     dict(cull_impl="pallas2", strategy="rounds", k_round=4,
          stale_round_masks=True),
-    dict(cull_impl="pallas2", near_frac=0.4, pairs_per_step=2),
+    dict(cull_impl="pallas2", near_frac=0.4),
     dict(cull_impl="pallas2", order="identity"),
 ])
 def test_pallas_variants_match_brute(kw):
     """Every cull/sort/strategy variant must produce identical hits:
-    they all re-schedule the same exact tests (round-4 block-granular
-    cull kernel vs the round-3 XLA stages; packed/group sorts are just
-    different valid permutations)."""
+    they all re-schedule the same exact tests (one- vs two-level cull;
+    packed/group sorts are just different valid permutations)."""
     from prismarine_core_tpu.accel.packet import (
         intersect_closest_pallas, occluded_pallas)
     n_tris, r = 700, 2048   # r: group-sort needs >= 2048 rays
@@ -208,37 +206,6 @@ def test_pallas_dead_lanes_culled():
         np.testing.assert_array_equal(tri, exp)
 
 
-@pytest.mark.parametrize("pps", [2, 4])
-def test_pairs_per_step_bit_identical(pps):
-    """pairs_per_step batches same-tile pairs into one kernel grid step
-    (tile-aligned compaction padding); results must be IDENTICAL to the
-    one-pair-per-step execution."""
-    from prismarine_core_tpu.accel.packet import _run_packet_pallas
-    soup = _random_soup(900, capacity=1024, seed=41)
-    bvh = build_bvh(soup, leaf_size=4)
-    ps = build_packet_set(bvh)
-    o, d = _rand_rays(1024, seed=42)
-    t_cap = jnp.full((1024,), 1e4)
-
-    t1, s1, _ = _run_packet_pallas(bvh.lo[0], bvh.hi[0], ps, o, d,
-                                   t_cap, pairs_per_step=1)
-    tp, sp, _ = _run_packet_pallas(bvh.lo[0], bvh.hi[0], ps, o, d,
-                                   t_cap, pairs_per_step=pps)
-    np.testing.assert_array_equal(np.asarray(sp), np.asarray(s1))
-    np.testing.assert_array_equal(np.asarray(tp), np.asarray(t1))
-
-    # any-hit (rounds strategy) too
-    t_max = jnp.full((1024,), 25.0)
-    _, s1a, _ = _run_packet_pallas(bvh.lo[0], bvh.hi[0], ps, o, d,
-                                   t_max, any_hit=True,
-                                   pairs_per_step=1)
-    _, spa, _ = _run_packet_pallas(bvh.lo[0], bvh.hi[0], ps, o, d,
-                                   t_max, any_hit=True,
-                                   pairs_per_step=pps)
-    np.testing.assert_array_equal(np.asarray(spa) >= 0,
-                                  np.asarray(s1a) >= 0)
-
-
 def test_primary_identity_order_matches():
     """cfg.primary_identity traces bounce 0 in scanline (identity)
     order; any order is valid, so the image must match the sorted
@@ -254,7 +221,7 @@ def test_primary_identity_order_matches():
     scene = make_cornell_scene()
     cam = Camera.look_at(eye=(0.0, 0.0, 3.4), target=(0.0, 0.0, 0.0),
                          fov_y_deg=50.0)
-    for extra in (dict(), dict(cull_impl="pallas2", pairs_per_step=4),
+    for extra in (dict(), dict(cull_impl="pallas2"),
                   dict(max_bounces=1)):
         cfg = RenderConfig(width=24, height=24, spp=1,
                            intersector="pallas",
@@ -280,55 +247,9 @@ def test_near_frac_round1_matches_brute():
     hb = intersect_closest_brute(soup, o, d, block=64)
     for nf in (0.25, 0.5):
         hp = intersect_closest_pallas(bvh, ps, soup, o, d,
-                                      near_frac=nf, pairs_per_step=4)
+                                      near_frac=nf)
         np.testing.assert_array_equal(np.asarray(hp.tri),
                                       np.asarray(hb.tri))
-
-
-def test_pallas_cull_packed_layout_matches_reference():
-    """The packed cull output layout (8 block chunks per grid step,
-    nb >= 1024) must produce the same per-(tile, block) entry
-    distances as a numpy slab reference; small scenes use the
-    broadcast fallback, so this synthesizes a 1024-block box table."""
-    from prismarine_core_tpu.ops.pallas_cull import pallas_block_cull
-    from prismarine_core_tpu.ops.pallas_intersect import RAY_COLS
-    from prismarine_core_tpu.utils.config import INF_DIST
-
-    rng = np.random.default_rng(71)
-    nb = 1024                      # blocks (>= 8*128 -> packed layout)
-    lo = rng.uniform(-10, 9, (nb, 3)).astype(np.float32)
-    hi = lo + rng.uniform(0.1, 1.5, (nb, 3)).astype(np.float32)
-    box_rows = jnp.asarray(
-        np.concatenate([lo.T, hi.T, np.zeros((2, nb), np.float32)]))
-
-    nt = 2
-    o = rng.uniform(-12, 12, (nt * 128, 3)).astype(np.float32)
-    d = rng.normal(size=(nt * 128, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    tc = np.where(rng.random(nt * 128) < 0.8, 25.0, 0.0).astype(
-        np.float32)
-    inv = 1.0 / np.where(np.abs(d) < 1e-12,
-                         np.where(d < 0, -1e-12, 1e-12), d)
-    rays = np.zeros(((nt + 1) * 128, RAY_COLS), np.float32)
-    rays[:nt * 128, 0:3] = o
-    rays[:nt * 128, 3:6] = d
-    rays[:nt * 128, 6] = tc
-    rays[:nt * 128, 8:11] = inv
-
-    got = np.asarray(pallas_block_cull(jnp.asarray(rays), box_rows,
-                                       jnp.int32(nt), packed_min_nt=0))
-    assert got.shape == (nt, nb)
-
-    # numpy reference
-    t0 = (lo[None, :, :] - o[:, None, :]) * inv[:, None, :]
-    t1 = (hi[None, :, :] - o[:, None, :]) * inv[:, None, :]
-    tn = np.minimum(t0, t1).max(-1)
-    tf = np.maximum(t0, t1).min(-1)
-    tn0 = np.maximum(tn, 0.0)
-    hit = (tf >= tn0) & (tn <= tc[:, None]) & (tc[:, None] > 0)
-    tnc = np.where(hit, tn0, INF_DIST)
-    ref = tnc.reshape(nt, 128, nb).min(axis=1)
-    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
 
 
 def test_primary_tile_order_matches():
@@ -366,77 +287,3 @@ def test_primary_tile_order_matches():
                                          block=(8, 16))
     img3 = np.asarray(render_with_samples(scene, cam, cfg3, cs, bs))
     assert np.isfinite(img3).all() and img3.mean() > 1e-2
-
-
-@pytest.mark.parametrize("kw", [
-    dict(),
-    dict(cull_impl="pallas2", pairs_per_step=4),
-    dict(cull_impl="pallas2", strategy="single"),
-    dict(strategy="rounds", k_round=4),
-])
-def test_mxu_kernel_form_matches(kw):
-    """The "mxu" determinant-form kernel (one MXU matmul per sub-block,
-    ops/pallas_intersect.py:mxu_planes_from_planes) reorders the f32
-    arithmetic of Moller-Trumbore, so hit/miss decisions may flip
-    exactly AT triangle edges; everywhere else it must agree with the
-    elementwise form, and every t it reports must match the brute t of
-    whichever triangle it picked."""
-    from prismarine_core_tpu.accel.packet import _run_packet_pallas
-    soup = _random_soup(800, capacity=1024, seed=51)
-    bvh = build_bvh(soup, leaf_size=4)
-    ps = build_packet_set(bvh)
-    r = 2048
-    o, d = _rand_rays(r, seed=52)
-    t_cap = jnp.full((r,), 1e4)
-
-    tm, sm, _ = _run_packet_pallas(bvh.lo[0], bvh.hi[0], ps, o, d,
-                                   t_cap, kernel_form="mt", **kw)
-    tx, sx, _ = _run_packet_pallas(bvh.lo[0], bvh.hi[0], ps, o, d,
-                                   t_cap, kernel_form="mxu", **kw)
-    tm, sm, tx, sx = (np.asarray(a) for a in (tm, sm, tx, sx))
-
-    # hit/miss parity for (nearly) all rays
-    agree_hit = (sm >= 0) == (sx >= 0)
-    assert agree_hit.mean() > 0.995, f"hit parity {agree_hit.mean()}"
-    # same slot for (nearly) all rays that both hit
-    both = (sm >= 0) & (sx >= 0)
-    same = sm[both] == sx[both]
-    assert same.mean() > 0.99, f"slot parity {same.mean()}"
-    # identical winners -> t within f32 reordering tolerance
-    np.testing.assert_allclose(tx[both][same], tm[both][same],
-                               rtol=1e-3, atol=1e-4)
-    # different winners must still be equally-near surfaces
-    if (~same).any():
-        np.testing.assert_allclose(tx[both][~same], tm[both][~same],
-                                   rtol=1e-2, atol=1e-3)
-
-
-def test_mxu_kernel_form_image_parity():
-    """Full integrator path under cfg.kernel_form="mxu": the rendered
-    image must match the elementwise form to sub-1% (winners are
-    re-evaluated differentiably, so only edge-pixel decisions move)."""
-    import dataclasses
-
-    from prismarine_core_tpu.models.camera import Camera
-    from prismarine_core_tpu.render.integrator import render_with_samples
-    from prismarine_core_tpu.utils.config import RenderConfig
-
-    scene = make_hall_scene(target_tris=2000)
-    cam = Camera.look_at(eye=(-10.0, 2.2, 0.0), target=(6.0, 1.6, 0.0),
-                         fov_y_deg=60.0)
-    cfg = RenderConfig(width=48, height=32, spp=1, max_bounces=3,
-                       intersector="pallas", cull_impl="pallas2",
-                       pairs_per_step=4)
-    cam_s = jnp.full((cfg.n_rays, 4), 0.5)
-    bounce_s = jnp.full((cfg.max_bounces, cfg.n_rays, 11), 0.37)
-    ref = np.asarray(render_with_samples(scene, cam, cfg, cam_s,
-                                         bounce_s))
-    cfg2 = dataclasses.replace(cfg, kernel_form="mxu")
-    img = np.asarray(render_with_samples(scene, cam, cfg2, cam_s,
-                                         bounce_s))
-    assert np.isfinite(img).all()
-    # pixelwise: nearly all pixels identical to tolerance; edge pixels
-    # may differ (different-but-equally-near winners)
-    close = np.isclose(img, ref, rtol=1e-3, atol=1e-3).all(axis=-1)
-    assert close.mean() > 0.98, f"pixel parity {close.mean()}"
-    assert abs(img.mean() - ref.mean()) < 5e-3 * max(ref.mean(), 1e-6)

@@ -141,7 +141,7 @@ def test_sharded_pallas_intersector_matches_single_device():
         build_sharded_packets, make_sharded_query, shard_packets,
         sharded_intersect_closest, sharded_occluded)
     from prismarine_core_tpu.parallel.mesh import make_mesh
-    from tests.test_bvh import _random_soup
+    from test_bvh import _random_soup
 
     soup = _random_soup(3000, capacity=3072, seed=21)
     bvh = build_bvh(soup, leaf_size=4)
@@ -203,7 +203,7 @@ def test_sharded_packets_memory_scales_one_over_mp():
     from prismarine_core_tpu.accel.lbvh import build_bvh
     from prismarine_core_tpu.parallel.shard_intersect import (
         build_sharded_packets, shard_packets)
-    from tests.test_bvh import _random_soup
+    from test_bvh import _random_soup
 
     soup = _random_soup(3000, capacity=3072, seed=5)
     bvh = build_bvh(soup, leaf_size=4)
@@ -467,8 +467,8 @@ def test_sharded_textures_match_and_scale():
 
 
 def test_sharded_production_knobs_match_single_device():
-    """The sharded path forwards the single-chip production knobs
-    (two-level cull, pairs_per_step, K, strategies) to each shard's
+    """The sharded path forwards the single-device production knobs
+    (two-level cull, K, strategies) to each shard's
     query — results must match the single-device render under the SAME
     knobs."""
     import dataclasses
@@ -477,8 +477,7 @@ def test_sharded_production_knobs_match_single_device():
         distribute_scene)
 
     scene = make_cornell_scene()
-    knobs = dict(cull_impl="pallas2", pairs_per_step=8, closest_k=16,
-                 cull_window=2048, cull_pps=16,
+    knobs = dict(cull_impl="pallas2", closest_k=16,
                  stale_round_masks=True, anyhit_strategy="single")
     cfg = RenderConfig(width=32, height=32, spp=1, max_bounces=2,
                        intersector="pallas", **knobs)
